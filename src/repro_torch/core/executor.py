@@ -1,0 +1,777 @@
+"""Executors: where training tasks actually run (paper §III-A).
+
+:class:`LocalExecutorPool` implements the
+:class:`repro_torch.core.backend.ExecutorBackend` protocol —
+``submit(assignment, data)`` yields ``TaskResult``s as tasks complete: N
+worker threads, each the analogue of one Spark executor in the paper, all
+launching on the process's device. It supports static plans
+(LPT/random/round-robin) and dynamic pull-queues, executor-failure recovery,
+and straggler speculation. (The mesh-slice pool of the JAX package is not
+ported yet.)
+
+The uniform→native data-format conversion happens HERE (executor-side) —
+never in the Driver (paper §III-B) — and is resolved through the process-wide
+:class:`~repro_torch.core.data_format.PreparedDataCache` (DESIGN.md §3.3): each
+(dataset fingerprint, format, converter params, placement) converts once per
+process; every result reports the conversion seconds it actually paid as
+``TaskResult.convert_seconds`` (0.0 on a cache hit).
+
+Validation happens here too (DESIGN.md §3.4): ``submit(assignment, data,
+validate=EvalPlan(...))`` makes each executor score the models it trained —
+batched device inference against eval data resolved through the same
+prepared-data cache — so results stream back already ranked-able
+(``TaskResult.score``/``eval_seconds``) and the driver never re-predicts.
+"""
+from __future__ import annotations
+
+import queue as _queue
+import threading
+import time
+from typing import Callable, Iterator
+
+from repro_torch.core.data_format import (
+    DenseMatrix,
+    PreparedDataCache,
+    ShardedPlacement,
+    prepared_data_cache,
+)
+from repro_torch.core.evaluation import EvalPlan, evaluate_models
+from repro_torch.core.fault import (
+    ExecutorFailure,
+    RetryLedger,
+    SearchWAL,
+    WALRecord,
+)
+from repro_torch.core.fusion import FusedBatch, charge_carrier
+from repro_torch.core.interface import (
+    RungTask,
+    TaskResult,
+    TrainTask,
+    get_estimator,
+    run_prepared,
+    run_prepared_batched,
+    run_prepared_resumable,
+)
+from repro_torch.core.scheduler import Assignment
+
+__all__ = ["LocalExecutorPool"]
+
+_DYNAMIC_POLICIES = ("dynamic", "lpt_dynamic")
+
+
+def _run_fused_unit(unit: FusedBatch, data, eid: int,
+                    cache: PreparedDataCache | None = None,
+                    placement=None,
+                    validate: EvalPlan | None = None) -> list[TaskResult]:
+    """Train a fused batch as ONE device program and unbatch into per-member
+    results. Amortized accounting: each member's ``train_seconds`` is the
+    batch total divided by the members actually run, and ``batch_size``
+    marks the result as fused for the CostModel's batched law. When the
+    batch BUILT the prepared-data entry, the full ``convert_seconds`` goes
+    to the charge-carrier member (fusion.charge_carrier: max cost, lowest
+    id) — one build, one observation, on the member the planner charged.
+    With ``validate`` set, the whole model stack is scored HERE (§3.4) as
+    one batched predict call — members stream back with ``score`` and
+    the amortized ``eval_seconds`` attached. A whole-batch exception is
+    BISECTED (§3.7): the batch splits at its structural bucket boundaries
+    (``split_at_buckets``) and each piece re-runs; an unsplittable piece
+    degrades to solo member runs — so one poison config costs only its own
+    result and every good member is salvaged. Task-level failure semantics
+    throughout: the executor survives."""
+    members = list(unit.tasks)
+    est = get_estimator(unit.estimator)
+    try:
+        models, total, conv = run_prepared_batched(
+            est, data, [m.params for m in members],
+            cache=cache, placement=placement)
+        per = total / len(members)
+        carrier = charge_carrier(members) if conv > 0 else -1
+        scores: list = [None] * len(members)
+        eval_per = 0.0
+        if validate is not None:
+            scores, eval_per = evaluate_models(
+                est, models, validate, prepared_cache=cache,
+                placement=placement)
+        return [
+            TaskResult(task=m, model=mod, train_seconds=per, executor_id=eid,
+                       batch_size=len(members),
+                       convert_seconds=conv if j == carrier else 0.0,
+                       score=scores[j], eval_seconds=eval_per)
+            for j, (m, mod) in enumerate(zip(members, models))
+        ]
+    except ExecutorFailure:
+        raise
+    except Exception as e:
+        if len(members) == 1:
+            return [TaskResult(task=members[0], model=None, train_seconds=0.0,
+                               executor_id=eid, error=repr(e))]
+        pieces = unit.split_at_buckets()
+        if len(pieces) > 1:
+            out: list[TaskResult] = []
+            for piece in pieces:
+                out.extend(_run_fused_unit(piece, data, eid, cache=cache,
+                                           placement=placement,
+                                           validate=validate))
+            return out
+        # single structural bucket: fall back to the singleton machinery —
+        # run each member solo so only the culprit carries the error
+        out = []
+        for m in members:
+            try:
+                s_est, model, secs, conv, rstate = _train_solo(
+                    m, data, cache=cache, placement=placement)
+                score, eval_s = _score_solo(s_est, model, validate, cache,
+                                            placement=placement)
+                out.append(TaskResult(task=m, model=model, train_seconds=secs,
+                                      executor_id=eid, convert_seconds=conv,
+                                      score=score, eval_seconds=eval_s,
+                                      resume_state=rstate))
+            except ExecutorFailure:
+                raise
+            except Exception as e2:
+                out.append(TaskResult(task=m, model=None, train_seconds=0.0,
+                                      executor_id=eid, error=repr(e2)))
+        return out
+
+
+def _train_solo(task, data, cache: PreparedDataCache | None = None,
+                placement=None):
+    """Train one solo task, dispatching :class:`RungTask`s through the
+    resumable path (DESIGN.md §3.6) so a promoted rung continues from its
+    carried state instead of retraining from scratch; plain tasks keep the
+    ``run_prepared`` path unchanged. Every solo call site (workers,
+    driver-inline leftovers, mesh slices, the multi-tenant service) goes
+    through here so rung semantics cannot diverge. Returns
+    ``(estimator, model, train_seconds, convert_seconds, resume_state)``."""
+    est = get_estimator(task.estimator)
+    if isinstance(task, RungTask):
+        model, secs, conv, rstate = run_prepared_resumable(
+            est, data, task.params, budget=task.budget, state=task.state,
+            cache=cache, placement=placement)
+        return est, model, secs, conv, rstate
+    model, secs, conv = run_prepared(est, data, task.params,
+                                     cache=cache, placement=placement)
+    return est, model, secs, conv, None
+
+
+def _score_solo(est, model, validate: EvalPlan | None,
+                cache: PreparedDataCache | None,
+                placement=None) -> tuple[float | None, float]:
+    """Executor-side scoring of one task's model (§3.4); returns
+    ``(score, eval_seconds)`` — ``(None, 0.0)`` when scoring is off. The
+    shared solo half of what ``_run_fused_unit`` does for a whole batch;
+    every solo path (workers, driver-inline leftovers, mesh slices) goes
+    through here so the semantics cannot diverge."""
+    if validate is None:
+        return None, 0.0
+    scores, eval_s = evaluate_models(est, [model], validate,
+                                     prepared_cache=cache,
+                                     placement=placement)
+    return scores[0], eval_s
+
+
+class LocalExecutorPool:
+    """Thread-per-executor pool with fault recovery + straggler speculation."""
+
+    def __init__(
+        self,
+        n_executors: int,
+        wal: SearchWAL | None = None,
+        failure_hook: Callable[[int, TrainTask], None] | None = None,
+        speculation_factor: float | None = None,
+        on_result: Callable[[TaskResult], None] | None = None,
+        prepared_cache: PreparedDataCache | None = None,
+        max_task_retries: int = 0,
+        retry_backoff: float = 0.05,
+        poison_threshold: int | None = 3,
+        deadline_factor: float | None = None,
+        task_timeout_seconds: float | None = None,
+        sleep: Callable[[float], None] = time.sleep,
+        n_shards: int = 1,
+    ):
+        self._n_executors = n_executors
+        #: sharded data plane (DESIGN.md §3.9): ``n_shards > 1`` asks for a
+        #: ShardedPlacement token, which raises until that plane is ported
+        self._placement_token = (
+            ShardedPlacement(int(n_shards)) if int(n_shards) > 1 else None)
+        self.wal = wal or SearchWAL(None)
+        self.failure_hook = failure_hook  # tests inject ExecutorFailure here
+        self.speculation_factor = speculation_factor
+        #: soft deadline (§3.7): ``deadline_factor`` × predicted cost rides
+        #: the speculation path — an overdue unit is duplicated on an idle
+        #: executor, first completion wins. ``speculation_factor`` (the
+        #: historical knob) takes precedence when both are set.
+        self.deadline_factor = deadline_factor
+        #: hard deadline (§3.7): a unit in flight longer than this many
+        #: wall-clock seconds is abandoned-and-requeued (one retry attempt
+        #: burned); out of attempts it surfaces as a terminal ``timed_out``
+        #: error result, and the submit loop stops waiting on the hung
+        #: worker (the daemon thread is left behind).
+        self.task_timeout_seconds = task_timeout_seconds
+        #: per-task attempt/taint bookkeeping, POOL-lifetime so a poison
+        #: task re-queued across rounds keeps its history (§3.7)
+        self._retry = RetryLedger(max_task_retries=max_task_retries,
+                                  retry_backoff=retry_backoff,
+                                  poison_threshold=poison_threshold,
+                                  sleep=sleep)
+        #: prepared-data cache the workers resolve conversion through; worker
+        #: threads share one device, so placement is the process default
+        #: (None) and the default cache is the process-wide one
+        self.prepared_cache = (prepared_cache if prepared_cache is not None
+                               else prepared_data_cache())
+        #: called with every accepted TaskResult the moment it lands, on the
+        #: worker thread — this is how the feedback CostModel observes
+        #: runtimes (session.py chains onto it). Exceptions are swallowed:
+        #: a broken observer must not take an executor down with it.
+        self.on_result = on_result
+        self._stragglers: list[TaskResult] = []
+        self._dead: set[int] = set()
+
+    def _emit(self, res: TaskResult) -> None:
+        if self.on_result is not None:
+            try:
+                self.on_result(res)
+            except Exception:
+                pass
+
+    @property
+    def n_executors(self) -> int:
+        return self._n_executors
+
+    def prepare_placements(self) -> list:
+        """Placement tokens this pool converts under (conversion-aware
+        costing probes these to tell cold formats from resident ones):
+        worker threads share the process default device — ONE token, the
+        sharded one when the pool runs the sharded data plane (§3.9)."""
+        return [self._placement_token]
+
+    # ------------------------------------------------------------------
+    def submit(self, assignment: Assignment, data: DenseMatrix,
+               validate: EvalPlan | None = None) -> Iterator[TaskResult]:
+        """Execute a static or dynamic plan, yielding results as they land.
+
+        ``validate`` (an :class:`~repro_torch.core.evaluation.EvalPlan`) turns on
+        executor-side scoring (§3.4): each model is evaluated by the worker
+        that trained it — eval data resolved once through the prepared-data
+        cache — and results carry ``score``/``eval_seconds``.
+
+        Closing the iterator early cancels cleanly: workers stop pulling new
+        tasks after their current one and the pool joins them.
+        """
+        self._stragglers = []  # per-submit buffer (see drain_stragglers)
+        shared: _queue.Queue[TrainTask] = _queue.Queue()
+        dynamic = assignment.policy in _DYNAMIC_POLICIES
+        if dynamic:
+            for t in assignment.all_tasks():
+                if not self.wal.is_done(t.task_id):
+                    shared.put(t)
+        results: dict[int, TaskResult] = {}
+        results_lock = threading.Lock()
+        requeue: _queue.Queue[TrainTask] = _queue.Queue()
+        out: _queue.Queue[TaskResult] = _queue.Queue()  # completion stream
+        stop = threading.Event()
+        in_flight: dict[int, tuple[int, float]] = {}  # task_id -> (executor, t0)
+        speculated: set[int] = set()
+
+        def accept(res: TaskResult, eid: int) -> bool:
+            """First-completion-wins bookkeeping shared by all paths; the WAL
+            is written (successes only) before the result is surfaced."""
+            with results_lock:
+                if res.task.task_id in results:
+                    return False
+                self._retry.stamp(res)
+                results[res.task.task_id] = res
+                if res.ok:
+                    self.wal.record(
+                        WALRecord(task_id=res.task.task_id, key=res.task.key(),
+                                  seconds=res.train_seconds, executor_id=eid,
+                                  score=res.score,
+                                  convert_seconds=res.convert_seconds,
+                                  eval_seconds=res.eval_seconds))
+                    if res.resume_state is not None:
+                        self.wal.record_resume(res.task.task_id,
+                                               res.resume_state)
+            return True
+
+        def execute_fused(eid: int, unit: FusedBatch) -> None:
+            """One fused unit: train pending members as one program, unbatch
+            into per-member results that flow through the normal stream."""
+            with results_lock:
+                pend = {m.task_id for m in unit.tasks
+                        if not self.wal.is_done(m.task_id)
+                        and m.task_id not in results}
+                if not pend:
+                    return
+                in_flight[unit.task_id] = (eid, time.perf_counter())
+            sub = unit.restrict(pend)
+            try:
+                hook_err: Exception | None = None
+                if self.failure_hook is not None:
+                    try:
+                        self.failure_hook(eid, unit)  # may raise ExecutorFailure
+                    except ExecutorFailure:
+                        raise
+                    except Exception as e:
+                        # injected batch-level failure: every pending member
+                        # fails this attempt; the retry filter below re-queues
+                        # them SOLO, so the culprit isolates on re-run (§3.7)
+                        hook_err = e
+                if hook_err is not None:
+                    batch_results = [
+                        TaskResult(task=m, model=None, train_seconds=0.0,
+                                   executor_id=eid, error=repr(hook_err),
+                                   batch_size=len(sub.tasks))
+                        for m in sub.tasks]
+                else:
+                    batch_results = _run_fused_unit(sub, data, eid,
+                                                    cache=self.prepared_cache,
+                                                    placement=self._placement_token,
+                                                    validate=validate)
+            except ExecutorFailure:
+                with results_lock:
+                    in_flight.pop(unit.task_id, None)
+                raise
+            with results_lock:
+                in_flight.pop(unit.task_id, None)
+            # solo-shaped members (pre-amortization cost restored) for
+            # retries: a failed member re-queues ALONE so its next attempt
+            # cannot take good batch-mates down with it (§3.7)
+            solo = {sub.tasks[i].task_id: sub.unfused_task(i)
+                    for i in range(len(sub.tasks))}
+            for res in batch_results:
+                if not res.ok and self._retry.should_retry(res.task.task_id):
+                    self._retry.wait(res.task.task_id)
+                    requeue.put(solo.get(res.task.task_id, res.task))
+                    continue
+                if accept(res, eid):
+                    self._emit(res)
+                    out.put(res)
+
+        def quarantine(eid: int, task: TrainTask, n: int | None = None) -> None:
+            """Surface a poison task as a terminal quarantine error (§3.7)."""
+            n = n if n is not None else self._retry.taints_of(task.task_id)
+            res = TaskResult(task=task, model=None, train_seconds=0.0,
+                             executor_id=eid,
+                             error=f"quarantined after {n} executor deaths "
+                                   "while claimed (poison task)",
+                             quarantined=True)
+            if accept(res, eid):
+                self._emit(res)
+                out.put(res)
+
+        def execute(eid: int, task) -> None:
+            if isinstance(task, FusedBatch):
+                execute_fused(eid, task)
+                return
+            if self.wal.is_done(task.task_id):
+                return
+            if self._retry.quarantined(task.task_id):
+                quarantine(eid, task)
+                return
+            with results_lock:
+                if task.task_id in results:
+                    return
+                in_flight[task.task_id] = (eid, time.perf_counter())
+            try:
+                if self.failure_hook is not None:
+                    self.failure_hook(eid, task)  # may raise ExecutorFailure
+                est, model, secs, conv, rstate = _train_solo(
+                    task, data, cache=self.prepared_cache,
+                    placement=self._placement_token)
+                score, eval_s = _score_solo(est, model, validate,
+                                            self.prepared_cache,
+                                            placement=self._placement_token)
+                res = TaskResult(task=task, model=model, train_seconds=secs,
+                                 executor_id=eid, convert_seconds=conv,
+                                 score=score, eval_seconds=eval_s,
+                                 resume_state=rstate)
+            except ExecutorFailure:
+                with results_lock:
+                    in_flight.pop(task.task_id, None)
+                raise
+            except Exception as e:  # task-level failure: record, don't kill pool
+                with results_lock:
+                    in_flight.pop(task.task_id, None)
+                if self._retry.should_retry(task.task_id):
+                    # bounded retry (§3.7): capped exponential backoff, then
+                    # back on the re-queue for any live worker to claim
+                    self._retry.wait(task.task_id)
+                    requeue.put(task)
+                    return
+                res = TaskResult(task=task, model=None, train_seconds=0.0, executor_id=eid, error=repr(e))
+            with results_lock:
+                in_flight.pop(task.task_id, None)
+            # failures stay out of the WAL (accept) so resume retries them
+            if accept(res, eid):
+                self._emit(res)
+                out.put(res)
+
+        def maybe_speculate(eid: int) -> TrainTask | None:
+            """Idle executor: duplicate the longest-overdue in-flight task.
+
+            The soft deadline (§3.7) rides this same path: ``deadline_factor``
+            is the unit's CostModel-predicted cost multiplier past which it
+            counts as overdue. ``speculation_factor`` (the historical knob)
+            takes precedence when both are set.
+            """
+            factor = (self.speculation_factor
+                      if self.speculation_factor is not None
+                      else self.deadline_factor)
+            if factor is None:
+                return None
+            now = time.perf_counter()
+            with results_lock:
+                best, overdue = None, 0.0
+                for tid, (owner, t0) in in_flight.items():
+                    if owner == eid or tid in speculated:
+                        continue
+                    task = task_by_id.get(tid)
+                    est_cost = task.cost if task and task.cost else None
+                    if est_cost is None:
+                        continue
+                    over = (now - t0) / est_cost
+                    if over > factor and over > overdue:
+                        best, overdue = task, over
+                if best is not None:
+                    speculated.add(best.task_id)
+                return best
+
+        task_by_id = {t.task_id: t for t in assignment.all_tasks()}
+
+        def requeue_after_death(eid: int, unit) -> None:
+            """An executor died while running ``unit``: taint it (§3.7).
+
+            A tainted FusedBatch re-queues as solo singletons so the poison
+            member isolates instead of re-killing whole batches; a task past
+            ``poison_threshold`` deaths is quarantined (terminal error
+            result) instead of being handed to the next victim.
+            """
+            if isinstance(unit, FusedBatch):
+                for m in unit.singletons():
+                    if self.wal.is_done(m.task_id):
+                        continue
+                    requeue_after_death(eid, m)
+                return
+            n = self._retry.taint(unit.task_id)
+            if self._retry.quarantined(unit.task_id):
+                quarantine(eid, unit, n)
+            else:
+                requeue.put(unit)
+
+        hard = self.task_timeout_seconds
+        hung: set[int] = set()  # executors abandoned past the hard deadline
+        overdue_ids: set[int] = set()  # unit ids ever abandoned as overdue
+        expected: set[int] = set()
+        if hard is not None:
+            for u in assignment.all_tasks():
+                members = u.tasks if isinstance(u, FusedBatch) else (u,)
+                expected.update(m.task_id for m in members
+                                if not self.wal.is_done(m.task_id))
+
+        def check_timeouts() -> None:
+            """Hard deadline (§3.7): abandon-and-requeue overdue units.
+
+            The abandoned copy keeps running on its (hung) worker — first
+            completion wins, ``accept`` dedups — but the submit loop stops
+            waiting on that worker. The overrun is fed to the cost-model
+            observer as a censored ``timed_out`` observation so the estimate
+            that missed stops being trusted.
+            """
+            now = time.perf_counter()
+            overdue: list[tuple[int, int, float, bool]] = []
+            with results_lock:
+                for tid, (owner, t0) in list(in_flight.items()):
+                    if now - t0 > hard:
+                        in_flight.pop(tid, None)
+                        hung.add(owner)
+                        overdue_ids.add(tid)
+                        unit = task_by_id.get(tid)
+                        retriable = (unit is not None
+                                     and self._retry.should_retry(tid))
+                        if retriable:
+                            # re-queue INSIDE the lock: an idle worker's
+                            # exit check reads in_flight under this lock,
+                            # so it cannot miss the retry in between
+                            requeue.put(unit)
+                        overdue.append((tid, owner, now - t0, retriable))
+            for tid, owner, elapsed, retriable in overdue:
+                unit = task_by_id.get(tid)
+                if unit is None:
+                    continue
+                if retriable:
+                    if not isinstance(unit, FusedBatch):
+                        # censored observation: surfaced to the observer
+                        # only, never to the result stream
+                        self._emit(TaskResult(
+                            task=unit, model=None, train_seconds=elapsed,
+                            executor_id=owner,
+                            error=(f"deadline exceeded after {elapsed:.3f}s "
+                                   "(abandoned, re-queued)"),
+                            timed_out=True))
+                    continue
+                members = (unit.tasks if isinstance(unit, FusedBatch)
+                           else (unit,))
+                for m in members:
+                    if self.wal.is_done(m.task_id):
+                        continue
+                    res = TaskResult(
+                        task=m, model=None, train_seconds=elapsed,
+                        executor_id=owner,
+                        error=(f"hard deadline: abandoned after "
+                               f"{elapsed:.3f}s on executor {owner}"),
+                        timed_out=True,
+                        attempts=self._retry.failures_of(tid))
+                    if accept(res, owner):
+                        self._emit(res)
+                        out.put(res)
+
+        def wait_for_requeue(idle: list) -> bool:
+            """Idle-worker exit gate under hard deadlines (§3.7): while any
+            peer still holds a unit in flight, a timeout may re-queue it —
+            so stay alive to claim the retry (otherwise it would fall to
+            the driver, which refuses suspect-hung work). After in_flight
+            drains, loop ONE more time so a retry queued in the same
+            locked section as the drain is never missed. Returns True to
+            keep looping, False to exit."""
+            if hard is None:
+                return False
+            with results_lock:
+                busy = bool(in_flight)
+            if busy:
+                idle[0] = False
+                stop.wait(0.01)
+                return True
+            if not idle[0]:
+                idle[0] = True
+                return True
+            return False
+
+        def worker(eid: int, static_queue: list[TrainTask]) -> None:
+            idle = [False]
+            try:
+                if dynamic:
+                    while not stop.is_set():
+                        try:
+                            task = requeue.get_nowait()
+                        except _queue.Empty:
+                            try:
+                                task = shared.get_nowait()
+                            except _queue.Empty:
+                                task = maybe_speculate(eid)
+                                if task is None:
+                                    if wait_for_requeue(idle):
+                                        continue
+                                    return
+                        idle[0] = False
+                        try:
+                            execute(eid, task)
+                        except ExecutorFailure:
+                            # dying with a claimed task: taint it, hand it to
+                            # survivors (or quarantine past the threshold)
+                            requeue_after_death(eid, task)
+                            raise
+                else:
+                    for i, task in enumerate(static_queue):
+                        if stop.is_set():
+                            return
+                        try:
+                            execute(eid, task)
+                        except ExecutorFailure:
+                            # the claimed task is tainted; the rest of my
+                            # queue was never claimed, push it plain
+                            requeue_after_death(eid, task)
+                            for rest in static_queue[i + 1:]:
+                                if not self.wal.is_done(rest.task_id):
+                                    requeue.put(rest)
+                            raise
+                    # static plan finished: drain any re-queued work from dead peers
+                    while not stop.is_set():
+                        try:
+                            task = requeue.get_nowait()
+                        except _queue.Empty:
+                            if wait_for_requeue(idle):
+                                continue
+                            return
+                        idle[0] = False
+                        try:
+                            execute(eid, task)
+                        except ExecutorFailure:
+                            requeue_after_death(eid, task)
+                            raise
+            except ExecutorFailure:
+                self._dead.add(eid)
+
+        threads = []
+        static_plans: list[list] = []
+        for eid in range(self._n_executors):
+            q = assignment.plan[eid] if eid < len(assignment.plan) and not dynamic else []
+            static_plans.append(q)
+            th = threading.Thread(target=worker, args=(eid, q), daemon=True)
+            threads.append(th)
+            th.start()
+        def join_all() -> None:
+            """Join workers; never wait forever on one abandoned past the
+            hard deadline (its daemon thread is left behind)."""
+            for eid2, th in enumerate(threads):
+                if hard is None:
+                    th.join()
+                else:
+                    th.join(0.1 if eid2 in hung else hard + 0.5)
+
+        try:
+            while any(th.is_alive() for th in threads):
+                try:
+                    res = out.get(timeout=0.05)
+                except _queue.Empty:
+                    if hard is not None:
+                        check_timeouts()
+                        with results_lock:
+                            covered = all(
+                                tid in results or self.wal.is_done(tid)
+                                for tid in expected)
+                        if covered:
+                            break  # every task terminal; stop waiting on hung workers
+                        if not any(th.is_alive()
+                                   for i, th in enumerate(threads)
+                                   if i not in hung):
+                            # only hung workers remain: salvage their
+                            # unclaimed static work and let the driver-
+                            # inline leftovers path finish the plan
+                            # (duplicates dedup against ``results`` there)
+                            for eid2 in hung:
+                                for t in static_plans[eid2]:
+                                    if not self.wal.is_done(t.task_id):
+                                        requeue.put(t)
+                            break
+                    continue
+                yield res
+            join_all()
+            while True:  # drain completions raced in while the last thread exited
+                try:
+                    res = out.get_nowait()
+                except _queue.Empty:
+                    break
+                yield res
+            # If every executor died mid-plan, some tasks may remain: run them
+            # inline (the "driver as executor of last resort" recovery path).
+            leftovers = []
+            while True:
+                try:
+                    leftovers.append(requeue.get_nowait())
+                except _queue.Empty:
+                    break
+            if dynamic:
+                while True:
+                    try:
+                        leftovers.append(shared.get_nowait())
+                    except _queue.Empty:
+                        break
+            while leftovers:
+                task = leftovers.pop(0)
+                if task.task_id in overdue_ids:
+                    # A unit once abandoned past the hard deadline is suspect
+                    # hung — the driver must NEVER run it inline (a genuine
+                    # hang would block the whole submit with no preemption).
+                    # Terminal timed_out, even with retry budget left.
+                    members = (task.tasks if isinstance(task, FusedBatch)
+                               else (task,))
+                    for m in members:
+                        if self.wal.is_done(m.task_id) or m.task_id in results:
+                            continue
+                        res = TaskResult(
+                            task=m, model=None, train_seconds=0.0,
+                            executor_id=-1,
+                            error=("hard deadline: abandoned as overdue; "
+                                   "not retried on the driver"),
+                            timed_out=True,
+                            attempts=self._retry.failures_of(task.task_id))
+                        if accept(res, -1):
+                            self._emit(res)
+                            yield res
+                    continue
+                if isinstance(task, FusedBatch):
+                    pend = {m.task_id for m in task.tasks
+                            if not self.wal.is_done(m.task_id)
+                            and m.task_id not in results}
+                    if not pend:
+                        continue
+                    sub = task.restrict(pend)
+                    solo = {sub.tasks[i].task_id: sub.unfused_task(i)
+                            for i in range(len(sub.tasks))}
+                    for res in _run_fused_unit(sub, data, -1,
+                                               cache=self.prepared_cache,
+                                               placement=self._placement_token,
+                                               validate=validate):
+                        if (not res.ok
+                                and self._retry.should_retry(res.task.task_id)):
+                            self._retry.wait(res.task.task_id)
+                            leftovers.append(
+                                solo.get(res.task.task_id, res.task))
+                            continue
+                        if accept(res, -1):
+                            self._emit(res)
+                            yield res
+                    continue
+                if not self.wal.is_done(task.task_id) and task.task_id not in results:
+                    if self._retry.quarantined(task.task_id):
+                        quarantine(-1, task)
+                        while True:  # quarantine() parks on out; surface it
+                            try:
+                                yield out.get_nowait()
+                            except _queue.Empty:
+                                break
+                        continue
+                    try:
+                        est, model, secs, conv, rstate = _train_solo(
+                            task, data, cache=self.prepared_cache,
+                            placement=self._placement_token)
+                        score, eval_s = _score_solo(est, model, validate,
+                                                    self.prepared_cache,
+                                                    placement=self._placement_token)
+                        res = TaskResult(task=task, model=model, train_seconds=secs,
+                                         executor_id=-1, convert_seconds=conv,
+                                         score=score, eval_seconds=eval_s,
+                                         resume_state=rstate)
+                        self.wal.record(WALRecord(task_id=task.task_id, key=task.key(),
+                                                  seconds=secs, executor_id=-1,
+                                                  score=score, convert_seconds=conv,
+                                                  eval_seconds=eval_s))
+                        if rstate is not None:
+                            self.wal.record_resume(task.task_id, rstate)
+                    except Exception as e:
+                        if self._retry.should_retry(task.task_id):
+                            self._retry.wait(task.task_id)
+                            leftovers.append(task)
+                            continue
+                        res = TaskResult(task=task, model=None, train_seconds=0.0, executor_id=-1, error=repr(e))
+                    self._retry.stamp(res)
+                    results[task.task_id] = res
+                    self._emit(res)
+                    yield res
+        finally:
+            stop.set()
+            join_all()
+            # tasks that finished while the stream was being cancelled: the
+            # WAL has them but the consumer never saw them. Park them for
+            # drain_stragglers() so a replanning driver can re-surface them.
+            while True:
+                try:
+                    self._stragglers.append(out.get_nowait())
+                except _queue.Empty:
+                    break
+
+    def drain_stragglers(self) -> list[TaskResult]:
+        """Results completed during an early ``submit`` cancellation (close /
+        break-out). The Session replan loop collects these so no trained
+        model is silently dropped; the buffer is cleared on read."""
+        got, self._stragglers = self._stragglers, []
+        return got
+
+    def run(self, assignment: Assignment, data: DenseMatrix,
+            validate: EvalPlan | None = None) -> list[TaskResult]:
+        """Blocking convenience: drain :meth:`submit` into a list."""
+        return list(self.submit(assignment, data, validate))
+
+    @property
+    def dead_executors(self) -> set[int]:
+        return set(self._dead)

@@ -1,0 +1,220 @@
+"""GBDT split-finding hot path as hand-written CUDA kernels for Hopper.
+
+The paper's dominant workload is gradient-boosted trees (864 of its 1,211
+search tasks run XGBoost), and histogram construction is the per-level hot
+spot of histogram-based GBDT training. The kernels live in
+``csrc/histogram.cu`` (its header says what bounds them and how they stay
+deterministic); this module holds their ctypes wrappers:
+
+* :func:`histogram_cuda` — per-(node, feature, bin) grad/hess sums, the
+  port of the JAX package's ``histogram_tpu``;
+* :func:`fused_level_split_cuda` — one tree level: the same sums, the
+  histogram-subtraction assembly and the split scan, the port of
+  ``fused_level_split_tpu``.
+
+Each wrapper checks its tensors, allocates outputs and scratch with
+``torch.empty``, launches on PyTorch's current stream, raises if the launch
+failed, and adds one to its ``launches`` counter. It takes CUDA tensors
+only: the plain versions (``ops._histogram_scatter``, ``ref.*``) serve the
+CPU. Oracles: :func:`repro_torch.kernels.ref.histogram_ref` /
+:func:`repro_torch.kernels.ref.level_split_ref`. Dispatch: ``ops.histogram``
+/ ``ops.level_split``.
+"""
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from repro_torch.kernels import _build
+
+__all__ = ["histogram_cuda", "fused_level_split_cuda", "launch_counts",
+           "reset_launch_counts"]
+
+#: cap on the partial histograms pass 1 writes and pass 2 reads back
+_PARTIAL_BYTES_CAP = 64 << 20
+#: fewest rows worth a row chunk of their own
+_MIN_CHUNK_ROWS = 1024
+_MAX_GRID_DIM = 65535
+
+_count_lock = threading.Lock()
+_device_info: dict[int, tuple[int, int]] = {}
+
+
+def _count(fn) -> None:
+    with _count_lock:
+        fn.launches += 1
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of each wrapper since the last :func:`reset_launch_counts`."""
+    with _count_lock:
+        return {"histogram": histogram_cuda.launches,
+                "level_split": fused_level_split_cuda.launches}
+
+
+def reset_launch_counts() -> None:
+    with _count_lock:
+        histogram_cuda.launches = 0
+        fused_level_split_cuda.launches = 0
+
+
+def _sm_count_and_smem(device: torch.device) -> tuple[int, int]:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _device_info:
+        sms = torch.cuda.get_device_properties(idx).multi_processor_count
+        _device_info[idx] = (sms, int(_build.load().repro_smem_optin(idx)))
+    return _device_info[idx]
+
+
+def _plan(device, n_rows: int, n_features: int, n_bins: int, n_acc: int):
+    """Launch shape of pass 1: ``(n_chunks, chunk_rows, nodes_per_tile)``.
+
+    Nodes are tiled so one tile's shared histogram fits the block's shared
+    memory (B=256 at depth 8 needs 128·256·8 bytes, more than 227 KB). Row
+    chunks are chosen for about 32 resident warps per SM, but never so many
+    that the partials pass the cap, nor chunks under ``_MIN_CHUNK_ROWS``."""
+    lib = _build.load()
+    sms, smem_optin = _sm_count_and_smem(device)
+    staging = int(lib.repro_accumulate_smem(n_bins, 0))
+    per_node = int(lib.repro_accumulate_smem(n_bins, 1)) - staging
+    if staging + per_node > smem_optin:
+        raise ValueError(f"n_bins={n_bins} does not fit one node's histogram "
+                         f"in {smem_optin} bytes of shared memory")
+    nodes_per_tile = min(n_acc, (smem_optin - staging) // per_node)
+    n_tiles = -(-n_acc // nodes_per_tile)
+    if n_rows == 0:
+        return 0, 0, nodes_per_tile
+    warps = min(8, -(-n_bins // 32))
+    target_blocks = sms * max(4, 32 // warps)
+    n_chunks = -(-target_blocks // (n_features * n_tiles))
+    n_chunks = min(n_chunks, -(-n_rows // _MIN_CHUNK_ROWS), _MAX_GRID_DIM,
+                   max(1, _PARTIAL_BYTES_CAP // (n_acc * n_features * n_bins * 8)))
+    n_chunks = max(1, n_chunks)
+    chunk_rows = -(-n_rows // n_chunks)
+    return -(-n_rows // chunk_rows), chunk_rows, nodes_per_tile
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_rows(bins, grad, hess, node):
+    if bins.dim() != 2:
+        raise ValueError(f"bins must be (rows, features), got shape {tuple(bins.shape)}")
+    r, f = bins.shape
+    _check("bins", bins, torch.int32, (r, f))
+    _check("grad", grad, torch.float32, (r,))
+    _check("hess", hess, torch.float32, (r,))
+    _check("node", node, torch.int32, (r,))
+    for t in (grad, hess, node):
+        if t.device != bins.device:
+            raise ValueError("bins, grad, hess and node must share one device")
+    if f < 1:
+        raise ValueError("bins needs at least one feature")
+    return r, f
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        text = _build.load().repro_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({text})")
+
+
+def histogram_cuda(bins, grad, hess, node, *, n_nodes: int, n_bins: int):
+    """Per-(node, feature, bin) grad/hess sums on the card; see
+    ``ref.histogram_ref``. bins: (R, F) int32 in [0, n_bins); grad, hess:
+    (R,) float32; node: (R,) int32 in [0, n_nodes], where n_nodes marks a
+    padding row that adds nothing. Returns (n_nodes, F, n_bins, 2) float32."""
+    r, f = _check_rows(bins, grad, hess, node)
+    if n_nodes < 1 or n_bins < 1:
+        raise ValueError("n_nodes and n_bins must be >= 1")
+    n_chunks, chunk_rows, npt = _plan(bins.device, r, f, n_bins, n_nodes)
+    partial = torch.empty((max(n_chunks, 1), n_nodes, f, n_bins, 2),
+                          dtype=torch.float32, device=bins.device)
+    hist = torch.empty((n_nodes, f, n_bins, 2), dtype=torch.float32,
+                       device=bins.device)
+    with torch.cuda.device(bins.device):
+        err = _build.load().repro_histogram(
+            bins.data_ptr(), grad.data_ptr(), hess.data_ptr(), node.data_ptr(),
+            partial.data_ptr(), hist.data_ptr(), r, f, n_bins, n_nodes,
+            n_chunks, chunk_rows, npt,
+            torch.cuda.current_stream(bins.device).cuda_stream)
+    _raise_on(err, "histogram kernel launch")
+    _count(histogram_cuda)
+    return hist
+
+
+histogram_cuda.launches = 0
+
+
+def fused_level_split_cuda(bins, grad, hess, node, *, n_nodes: int, n_bins: int,
+                           lam, min_child_weight, bin_limit=None,
+                           feat_mask=None, parent_hist=None,
+                           small_is_left=None, return_hist: bool = True):
+    """One GBDT tree level on the card; see ``ref.level_split_ref``.
+
+    Direct mode (``parent_hist=None``): ``node`` holds each row's node in
+    ``[0, n_nodes)``. Subtraction mode: the caller (``ops.level_split``) has
+    compacted the rows to the SMALLER child of every sibling pair, ``node``
+    holds the PARENT id in ``[0, n_nodes/2)`` (padding: ``n_nodes/2``),
+    ``parent_hist`` the cached ``(n_nodes/2, F, B, 2)`` level-above
+    histograms and ``small_is_left[p]`` whether pair p's smaller child is the
+    left one. ``lam``, ``min_child_weight`` and ``bin_limit`` are runtime
+    kernel arguments. Returns ``(hist | None, best_gain, best_feat,
+    best_split)``, the bests as (n_nodes,) tensors; an all-masked node gives
+    ``(-inf, 0, 0)``.
+
+    The kernel always writes the full histogram to device memory: the split
+    scan reads it back from there. ``return_hist=False`` only leaves it out
+    of the result (the TPU kernel also skips the write; here that is a
+    ROADMAP follow-up).
+    """
+    r, f = _check_rows(bins, grad, hess, node)
+    dev = bins.device
+    subtract = parent_hist is not None
+    if subtract and (n_nodes < 2 or n_nodes % 2):
+        raise ValueError(f"subtraction needs an even n_nodes, got {n_nodes}")
+    n_acc = n_nodes // 2 if subtract else n_nodes
+    if n_acc < 1 or n_bins < 1:
+        raise ValueError("n_nodes and n_bins must be >= 1")
+    if subtract:
+        _check("parent_hist", parent_hist, torch.float32, (n_acc, f, n_bins, 2))
+        if small_is_left is None:
+            raise ValueError("subtraction needs small_is_left")
+        sil = small_is_left.to(torch.int32).contiguous()
+        _check("small_is_left", sil, torch.int32, (n_acc,))
+    fm = (torch.ones(f, dtype=torch.int32, device=dev) if feat_mask is None
+          else torch.as_tensor(feat_mask, device=dev).to(torch.int32).contiguous())
+    _check("feat_mask", fm, torch.int32, (f,))
+    blim = n_bins if bin_limit is None else int(bin_limit)
+    n_chunks, chunk_rows, npt = _plan(dev, r, f, n_bins, n_acc)
+    partial = torch.empty((max(n_chunks, 1), n_acc, f, n_bins, 2),
+                          dtype=torch.float32, device=dev)
+    hist = torch.empty((n_nodes, f, n_bins, 2), dtype=torch.float32, device=dev)
+    best_gain = torch.empty(n_nodes, dtype=torch.float32, device=dev)
+    best_feat = torch.empty(n_nodes, dtype=torch.int32, device=dev)
+    best_split = torch.empty(n_nodes, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.load().repro_level_split(
+            bins.data_ptr(), grad.data_ptr(), hess.data_ptr(), node.data_ptr(),
+            parent_hist.data_ptr() if subtract else None,
+            sil.data_ptr() if subtract else None, fm.data_ptr(),
+            float(lam), float(min_child_weight), blim,
+            partial.data_ptr(), hist.data_ptr(), best_gain.data_ptr(),
+            best_feat.data_ptr(), best_split.data_ptr(),
+            r, f, n_bins, n_nodes, int(subtract), n_chunks, chunk_rows, npt,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "level-split kernel launch")
+    _count(fused_level_split_cuda)
+    return (hist if return_hist else None), best_gain, best_feat, best_split
+
+
+fused_level_split_cuda.launches = 0
