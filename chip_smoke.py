@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's GBDT model search on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py               # every phase, on cuda:0
-    python3 chip_smoke.py --phases 1,2  # a subset, for debugging
+    python3 chip_smoke.py                 # every phase, on cuda:0
+    python3 chip_smoke.py --phases 1,2    # a subset, for debugging
+    python3 chip_smoke.py --phases 6,7,8  # the LM serving path only
 
 It imports only the port (``src/repro_torch``), never JAX or the JAX
 package, and exits non-zero without printing a result when CUDA is absent
@@ -19,7 +20,19 @@ or any phase fails. Phases:
    every tree level went through the level kernel;
 4. the path against the plain path, determinism and resume;
 5. one GBDT fit at UCI HIGGS's full size (11,000,000 rows x 28 features,
-   256 bins): seconds per round, the kernels' share, peak device memory.
+   256 bins): seconds per round, the kernels' share, peak device memory;
+6. the LM kernels (flash attention, RG-LRU, RWKV-6) against their plain
+   versions at the serving path's shapes, with stated tolerances, two
+   launches bit-identical, kernel / plain / library times beside the bound;
+7. RecurrentGemma-9B served at full width and depth (38 layers) on seeded
+   random weights: one wave of 4 requests (prompts of 4096, 3000, 2048 and
+   1000 tokens, 32 new tokens each) through ``ServeEngine``, with the
+   launches of each kernel per prefill and per decode step, the kernel
+   path against the plain path (the float32 prefill layer by layer, to
+   1e-3 of each layer's update; the bf16 prefill logits within the plain
+   path's own bf16 noise),
+   and two serves giving the same tokens;
+8. RWKV6-7B (32 layers) the same way.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -27,6 +40,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -36,9 +50,11 @@ from pathlib import Path
 import numpy as np
 
 # H100 SXM data sheet: HBM3 at 3.35 TB/s; float32 outside the tensor cores
-# at 67 TFLOP/s (both at the full 700 W power limit)
+# at 67 TFLOP/s; dense bf16 on the tensor cores at 989 TFLOP/s (all at the
+# full 700 W power limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
 
 R_KERNEL, F_KERNEL = 800_000, 28
 HIST_TOL = dict(rtol=1e-4, atol=1e-3)   # float sums in another order
@@ -46,9 +62,10 @@ GAIN_RTOL = 1e-4                        # gain tolerance, see _decisions_tie_awa
 AUC_TOL = 5e-3
 
 
-def _bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+def _bound_ms(n_bytes: float, n_flops: float,
+              peak_flops: float = PEAK_F32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_flops / PEAK_F32_FLOP_PER_S * 1e3
+    t_ops = n_flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -359,9 +376,396 @@ def phase_full_size(torch, out: dict) -> None:
                             kernel_share=share, peak_bytes=peak)
 
 
+# ---------------------------------------------------------------------------
+# The LM serving path (phases 6-8)
+# ---------------------------------------------------------------------------
+
+# bf16 outputs: the kernel and the plain version each round a float32 result
+# to bf16 once, so they may differ by one bf16 ulp of the value. Held as
+# |err| <= BF16_TOL * (max |plain| over the row + |plain|), a row being the
+# last axis (one query's head_dim, one step's channels): that covers one ulp
+# (2**-7 of the value's binade) at every magnitude, and each row is held to
+# its own scale, not the largest value of the tensor.
+BF16_TOL = 2.0 ** -8
+ATTN_F32_TOL = dict(atol=1e-5, rtol=1e-4)   # float32 attention: sums in another order
+STATE_TOL = 1e-4    # float32 recurrent states: atol and rtol, in units of max |plain|
+# the float32 prefill, layer by layer: each layer on the kernel path against
+# the same layer on the plain path, both given the plain path's output of the
+# layer before, in units of the layer's largest update |out - in|. The two
+# differ only in the order of float32 sums inside the kernels (on an H100,
+# up to 2e-6 of the update in RecurrentGemma-9B's layers and 3e-4 in
+# RWKV6-7B's, whose per-head group norm rescales every head's output to
+# unit spread), so this holds every kernel layer at full width and depth on
+# the model's own activations. The kernel path run freely through the stack
+# is reported beside it: a random stack carries the float32 differences of
+# one layer on to the next (RWKV6-7B's grow about 15x a layer at first), so
+# the end-to-end logits are not a yardstick.
+LAYER_F32_TOL = 1e-3
+# prefill logits, kernel path against plain path on the same card. Both run
+# in bf16 and round different values in every kernel layer, and a random
+# 32- or 38-layer stack carries those differences to the logits, so a fixed
+# fraction of the logits is no yardstick (a first run at 5 % of max |logit|
+# passed RecurrentGemma at 1.0 % and failed RWKV6-7B at 7.4 %). The noise
+# is measured instead: the plain path's own distance from the plain path in
+# float32 (max |logit difference| over the batch). The kernel path must lie
+# within LOGIT_NOISE_FACTOR of that noise from the plain path and from the
+# float32 run alike: the two bf16 paths each sit about one noise from the
+# float32 result.
+LOGIT_NOISE_FACTOR = 2.0
+LM_PROMPTS = (4096, 3000, 2048, 1000)
+LM_NEW_TOKENS = 32
+# float32 operations per element of the fused RG-LRU gate math and update:
+# two sigmoids (3 each), softplus folded into a per-channel constant, the
+# product with it, exp, expm1 with its doubling, sqrt and negation, two
+# products for beta * (sigmoid * x), and the a * h + u update
+RGLRU_OPS_PER_ELEMENT = 16
+
+
+def _held(torch, what, got, want, atol, rtol) -> float:
+    """``atol``: a float, or a tensor that broadcasts against ``want``."""
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    bad = diff > atol + rtol * want.float().abs()
+    if bool(bad.any()):
+        i = int(bad.flatten().nonzero()[0])
+        raise AssertionError(f"{what}: |err| {float(diff.flatten()[i]):.3g} at flat index "
+                             f"{i} (plain {float(want.flatten()[i]):.3g}) beyond its "
+                             f"tolerance; max |err| {err:.3g}")
+    return err
+
+
+def _bf16_held(torch, what, got, want) -> tuple[float, str]:
+    row_max = want.float().abs().amax(dim=-1, keepdim=True)
+    tol = (f"atol {BF16_TOL:.3g} x row max |plain| in [{float(row_max.min()):.3g}, "
+           f"{float(row_max.max()):.3g}], rtol {BF16_TOL:.3g}")
+    return _held(torch, what, got, want, BF16_TOL * row_max, BF16_TOL), tol
+
+
+def _state_held(torch, what, got, want) -> float:
+    scale = float(want.abs().max())
+    return _held(torch, what, got, want, STATE_TOL * scale, STATE_TOL)
+
+
+def _attention_case(torch, gen, label, b, hq, hkv, tq, tk, d, dtype, *, window=None,
+                    cap=None):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+               for shape in ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d)))
+    kw = dict(causal=True, window=window, logit_softcap=cap)
+    got = flash_attention_cuda(q, k, v, **kw)
+    want = ref.attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _check(not bool(torch.isnan(want).any()), f"{label}: a row sees no key")
+    if dtype == torch.float32:
+        err, tol = _held(torch, f"attention {label}", got, want, **ATTN_F32_TOL), "rtol 1e-4"
+    else:
+        err, tol = _bf16_held(torch, f"attention {label}", got, want)
+    _check(torch.equal(got, flash_attention_cuda(q, k, v, **kw)), f"{label}: two launches differ")
+    ms = _time_ms(torch, lambda: flash_attention_cuda(q, k, v, **kw))
+    plain_ms = _time_ms(torch, lambda: ref.attention_ref(q, k, v, **kw), reps=3)
+    q_pos = torch.arange(tq, device="cuda")[:, None] + (tk - tq)
+    k_pos = torch.arange(tk, device="cuda")[None, :]
+    mask = k_pos <= q_pos
+    if window is not None:
+        mask &= q_pos - k_pos < window
+    library_ms = None
+    if cap is None:       # no PyTorch call applies a tanh softcap
+        library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=hq != hkv))
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    n_flops = 4.0 * b * hq * int(mask.sum()) * d        # QK^T and PV on visible pairs
+    peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 else PEAK_F32_FLOP_PER_S
+    bound, by = _bound_ms(n_bytes, n_flops, peak)
+    print(f"  attention {label}: max|err| {err:.3g} ({tol}), bit-identical reruns, "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, library "
+          f"{'none' if library_ms is None else f'{library_ms:.3f} ms'}, bound "
+          f"{bound:.4f} ms ({by})", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bound, bound_by=by,
+                library_ms=library_ms)
+
+
+def _rglru_case(torch, gen, b, t, d, with_h0):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rglru import rglru_cuda
+
+    x, ig, rg = (torch.randn((b, t, d), generator=gen, device="cuda").bfloat16()
+                 for _ in range(3))
+    a = torch.randn(d, generator=gen, device="cuda")
+    h0 = torch.randn((b, d), generator=gen, device="cuda") if with_h0 else None
+    y, h = rglru_cuda(x, ig, rg, a, h0)
+    y_r, h_r = ref.rglru_ref(x, ig, rg, a, h0)
+    torch.cuda.synchronize()
+    label = f"B={b} T={t} D={d}{' h0' if with_h0 else ''}"
+    err, tol = _bf16_held(torch, f"rglru {label} y", y, y_r)
+    h_err = _state_held(torch, f"rglru {label} h_T", h, h_r)
+    y2, h2 = rglru_cuda(x, ig, rg, a, h0)
+    _check(torch.equal(y, y2) and torch.equal(h, h2), f"rglru {label}: two launches differ")
+    ms = _time_ms(torch, lambda: rglru_cuda(x, ig, rg, a, h0))
+    plain_ms = _time_ms(torch, lambda: ref.rglru_ref(x, ig, rg, a, h0), reps=3)
+    n = b * t * d
+    n_bytes = 4 * n * 2 + 4 * d + 4 * b * d * (2 if with_h0 else 1)
+    bound, by = _bound_ms(n_bytes, RGLRU_OPS_PER_ELEMENT * n)
+    print(f"  rglru {label}: y max|err| {err:.3g} ({tol}), "
+          f"h_T max|err| {h_err:.3g} (rtol {STATE_TOL:g} of scale), bit-identical reruns, "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by})", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bound, bound_by=by,
+                library_ms=None)
+
+
+def _rwkv6_case(torch, gen, b, h, t, dk, dv, with_s0):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rwkv6 import rwkv6_cuda
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    r, k = randn(b, h, t, dk).bfloat16(), randn(b, h, t, dk).bfloat16()
+    v = randn(b, h, t, dv).bfloat16()
+    w = randn(b, h, t, dk) * 1.5 - 1.0     # decays from ~0 to ~0.99 per step
+    u = randn(h, dk) * 0.5
+    s0 = randn(b, h, dk, dv) if with_s0 else None
+    y, s = rwkv6_cuda(r, k, v, w, u, s0)
+    y_r, s_r = ref.rwkv6_ref(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    label = f"B={b} H={h} T={t} Dk={dk} Dv={dv}{' s0' if with_s0 else ''}"
+    err, tol = _bf16_held(torch, f"rwkv6 {label} y", y, y_r)
+    s_err = _state_held(torch, f"rwkv6 {label} S_T", s, s_r)
+    y2, s2 = rwkv6_cuda(r, k, v, w, u, s0)
+    _check(torch.equal(y, y2) and torch.equal(s, s2), f"rwkv6 {label}: two launches differ")
+    ms = _time_ms(torch, lambda: rwkv6_cuda(r, k, v, w, u, s0))
+    plain_ms = _time_ms(torch, lambda: ref.rwkv6_ref(r, k, v, w, u, s0), reps=3)
+    steps = b * h * t
+    n_bytes = (steps * ((2 * dk + dv) * 2 + dk * 4 + dv * 2) + h * dk * 4
+               + b * h * dk * dv * 4 * (2 if with_s0 else 1))
+    # per step and head: the readout r.S (2 Dk Dv: a product and a sum per
+    # state element), the update d*S + k v^T (3 Dk Dv), the bonus as the
+    # scalar r.(u*k) (3 Dk) times v added to y (2 Dv), the decay
+    # exp(-exp(w)) (2 Dk)
+    n_flops = steps * (5 * dk * dv + 5 * dk + 2 * dv)
+    bound, by = _bound_ms(n_bytes, n_flops)
+    print(f"  rwkv6 {label}: y max|err| {err:.3g} ({tol}), "
+          f"S_T max|err| {s_err:.3g} (rtol {STATE_TOL:g} of scale), bit-identical reruns, "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by})", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bound, bound_by=by,
+                library_ms=None)
+
+
+def phase_lm_kernels(torch, out: dict) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bf16 = torch.bfloat16
+    # (a) RecurrentGemma-9B's prefill attention: the numbers of the kernels line
+    out["flash_attention"] = _attention_case(
+        torch, gen, "(a) B=4 Hq=16 Hkv=1 T=4096 D=256 window=2048 bf16",
+        4, 16, 1, 4096, 4096, 256, bf16, window=2048)
+    _attention_case(torch, gen, "(a') the same in float32", 4, 16, 1, 4096, 4096, 256,
+                    torch.float32, window=2048)
+    _attention_case(torch, gen, "(b) B=2 Hq=32 Hkv=4 T=1000 D=64 bf16", 2, 32, 4,
+                    1000, 1000, 64, bf16)
+    _attention_case(torch, gen, "(b') the same in float32", 2, 32, 4, 1000, 1000, 64,
+                    torch.float32)
+    _attention_case(torch, gen, "(c) (b) with softcap 50", 2, 32, 4, 1000, 1000, 64,
+                    bf16, cap=50.0)
+    _attention_case(torch, gen, "(d) Tq=1 Tk=64 B=4 Hq=16 Hkv=1 D=256 bf16", 4, 16, 1,
+                    1, 64, 256, bf16)
+    out["rglru"] = _rglru_case(torch, gen, 4, 4096, 4096, False)
+    _rglru_case(torch, gen, 4, 4096, 4096, True)
+    _rglru_case(torch, gen, 4, 1, 4096, True)
+    out["rwkv6"] = _rwkv6_case(torch, gen, 4, 64, 4096, 64, 64, False)
+    _rwkv6_case(torch, gen, 4, 64, 4096, 64, 64, True)
+    _rwkv6_case(torch, gen, 4, 64, 1, 64, 64, True)
+
+
+def _layerwise_f32(torch, cfg32, params, batch, max_len):
+    """The float32 prefill one layer at a time (see LAYER_F32_TOL). Returns
+    the largest per-layer error and, per layer, how far the freely running
+    kernel path has drifted from the plain path (both in units of that
+    layer's largest update)."""
+    from repro_torch.models import init_decode_state, layer_specs
+    from repro_torch.models import transformer as tm
+
+    state = init_decode_state(cfg32, 4, max_len, device="cuda")
+    x_ref = tm._embed(cfg32, params, tm._tokens(params, batch["tokens"]))
+    x_free = x_ref
+    positions = torch.arange(x_ref.shape[1], device="cuda")
+    worst, drift = 0.0, []
+    with torch.no_grad():
+        for i, (spec, p, st) in enumerate(zip(layer_specs(cfg32), params.layers, state)):
+            want = tm._prefill_layer(cfg32, spec, p, st, x_ref, positions, "ref")
+            got = tm._prefill_layer(cfg32, spec, p, st, x_ref, positions, None)
+            x_free = tm._prefill_layer(cfg32, spec, p, st, x_free, positions, None)
+            scale = float((want - x_ref).abs().max())
+            err = float((got - want).abs().max()) / scale
+            _check(err <= LAYER_F32_TOL, f"float32 layer {i} ({spec.kind}): kernel path off "
+                                         f"the plain path by {err:.3g} of its update")
+            worst = max(worst, err)
+            drift.append(float((x_free - want).abs().max()) / scale)
+            x_ref = want
+    return worst, drift
+
+
+def _profiled_serve(torch, engine, wave):
+    """One more serve under torch.profiler: the device's busy share of the
+    wall time, its time by kind of kernel (shares of device time), and the
+    five kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.serve(wave())
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # in this order: "copy" is dtype casts and copies, chiefly dense()'s
+    # float32 → bf16 weight cast on every call (PyTorch runs them as
+    # elementwise kernels named after direct_copy); "elementwise" the other
+    # pointwise ops (norms, rope, activations, the causal conv)
+    kinds = (("flash_attention", ("flash_fwd",)), ("rglru", ("rglru_fwd",)),
+             ("rwkv6", ("rwkv6_fwd",)),
+             ("matmul", ("gemm", "xmma", "cutlass", "cublas", "nvjet")),
+             ("copy", ("copy",)), ("elementwise", ("elementwise", "reduce")))
+    by_kind: dict = {}
+    per_kernel = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(evt, "self_device_time_total", None)
+        if t is None:
+            t = getattr(evt, "self_cuda_time_total", 0.0)
+        kind = next((k for k, keys in kinds if any(x in evt.key.lower() for x in keys)),
+                    "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + t
+        per_kernel.append((t, evt.key[:100]))
+    dev_us = sum(by_kind.values())
+    if dev_us <= 0:
+        return "not measured", {}, []
+    shares = {k: round(v / dev_us, 3) for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])}
+    top = [(name, round(t / dev_us, 3)) for t, name in sorted(per_kernel, reverse=True)[:5]]
+    return f"{dev_us / wall_us:.3f}", shares, top
+
+
+def phase_serve(torch, out: dict, arch: str) -> None:
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import (count_params, init_decode_state, init_params,
+                                    layer_specs, prefill)
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = configs.get_config(arch)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    max_len = max(LM_PROMPTS) + LM_NEW_TOKENS
+    engine = ServeEngine(cfg, params, batch_size=4, max_len=max_len)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in LM_PROMPTS]
+
+    def wave():
+        return [Request(i, p, max_new_tokens=LM_NEW_TOKENS) for i, p in enumerate(prompts)]
+
+    kinds = [s.kind for s in layer_specs(cfg)]
+    per_pass = {"flash_attention": kinds.count("attn"), "rglru": kinds.count("rglru"),
+                "rwkv6": kinds.count("rwkv"), "histogram": 0, "level_split": 0}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    first = engine.serve(wave())
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    st = engine.last_stats
+    _check(st.decode_steps == LM_NEW_TOKENS - 1, f"{st.decode_steps} decode steps")
+    _check(all(len(r.output) == LM_NEW_TOKENS for r in first), "a request is short of tokens")
+    # prefill launches every kernel of its layers once, each decode step the
+    # recurrent ones again (decode attention is plain PyTorch, as in the JAX package)
+    want = {n: c * (1 if n == "flash_attention" else 1 + st.decode_steps)
+            for n, c in per_pass.items()}
+    _check(counts == want, f"launches {counts}, expected {want}")
+    _check(all(counts[n] > 0 for n, c in per_pass.items() if c), "a kernel of the path never ran")
+
+    batch, _ = engine._make_batch(wave())
+    reset_launch_counts()
+    state = init_decode_state(cfg, 4, max_len, device="cuda")
+    logits_k, _ = prefill(cfg, params, state, batch)
+    _check(launch_counts() == per_pass, f"one prefill launched {launch_counts()}")
+    del state
+    t0 = time.perf_counter()
+    state = init_decode_state(cfg, 4, max_len, device="cuda")
+    logits_r, _ = prefill(cfg, params, state, batch, force="ref")
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    del state
+    state = init_decode_state(cfg, 4, max_len, device="cuda")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    logits_32, _ = prefill(cfg32, params, state, batch, force="ref")
+    del state
+    _check(launch_counts() == per_pass, "the plain path launched a kernel")
+    state = init_decode_state(cfg, 4, max_len, device="cuda")
+    logits_k32, _ = prefill(cfg32, params, state, batch)
+    del state
+    _check(launch_counts() == {n: 2 * c for n, c in per_pass.items()},
+           f"the float32 prefill launched {launch_counts()}")
+    err_f32 = float((logits_k32 - logits_32).abs().max())
+    layer_err, drift = _layerwise_f32(torch, cfg32, params, batch, max_len)
+    _check(bool(torch.isfinite(logits_k).all()) and logits_k.shape == (4, cfg.vocab),
+           "prefill logits malformed")
+    noise = float((logits_r - logits_32).abs().max())
+    tol = LOGIT_NOISE_FACTOR * noise
+    err = float((logits_k - logits_r).abs().max())
+    err32 = float((logits_k - logits_32).abs().max())
+    _check(err <= tol, f"prefill logits: kernel path off the plain path by {err:.4g} > {tol:.4g}")
+    _check(err32 <= tol, f"prefill logits: kernel path off the float32 run by {err32:.4g} "
+                         f"> {tol:.4g}")
+    top2 = logits_r.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > tol
+    agree = logits_k.argmax(-1) == logits_r.argmax(-1)
+    _check(bool(agree[clear].all()), "first greedy token differs where the margin is clear")
+    _check([r.output[0] for r in first] == logits_k.argmax(-1).tolist(),
+           "the served first tokens are not the prefill's argmax")
+    second = engine.serve(wave())
+    _check([r.output for r in second] == [r.output for r in first], "two serves differ")
+    busy, shares, top = _profiled_serve(torch, engine, wave)
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{count_params(params) / 1e9:.2f}B {cfg.param_dtype} parameters (init {init_s:.1f} s); "
+          f"prompts {list(LM_PROMPTS)}, {LM_NEW_TOKENS} new tokens each", flush=True)
+    print(f"  prefill {st.prefill_s:.3f} s, decode {st.decode_steps} steps in "
+          f"{st.decode_s:.3f} s = {st.decode_tokens_per_s:.1f} tok/s "
+          f"({st.decode_s / st.decode_steps * 1e3:.1f} ms/step); second serve prefill "
+          f"{engine.last_stats.prefill_s:.3f} s, {engine.last_stats.decode_tokens_per_s:.1f} "
+          f"tok/s; peak memory {peak / 2**30:.2f} GiB", flush=True)
+    marks = sorted({0, 1, 3, 7, 15, len(drift) - 1})
+    print(f"  float32 prefill layer by layer: largest kernel-vs-plain error {layer_err:.3g} "
+          f"of a layer's update (tol {LAYER_F32_TOL:g}); free-running drift after layer "
+          + ", ".join(f"{i + 1}: {drift[i]:.3g}" for i in marks)
+          + f"; float32 logits kernel vs plain {err_f32:.4g} of max|logit| "
+          f"{float(logits_32.abs().max()):.4g}", flush=True)
+    print(f"  launches {counts} (per prefill {per_pass}); "
+          f"bf16 prefill logits kernel vs plain: "
+          f"max|err| {err:.4g}, vs plain float32 {err32:.4g} (tol {tol:.4g} = "
+          f"{LOGIT_NOISE_FACTOR:g} x the plain path's bf16 noise {noise:.4g}; max|logit| "
+          f"{float(logits_r.abs().max()):.4g}), "
+          f"first token agrees on {int(agree.sum())}/4, margin clear on "
+          f"{int(clear.sum())}/4; plain prefill {ref_s:.1f} s; two serves give the same "
+          f"tokens", flush=True)
+    print(f"  profiled third serve: device busy {busy}, device time by kind {shares}; "
+          f"top kernels {top}", flush=True)
+    out.setdefault("lm_launches", {}).update(
+        {n: c for n, c in counts.items() if per_pass[n]})
+    out[arch] = dict(prefill_s=st.prefill_s, decode_tok_s=st.decode_tokens_per_s,
+                     peak_bytes=peak, layer_err_f32=layer_err, logit_err_f32=err_f32,
+                     logit_err=err,
+                     logit_tol=tol)
+    del engine, params, first, second, logits_k, logits_r, logits_32, logits_k32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
     import torch
 
@@ -397,6 +801,15 @@ def main() -> int:
     if 5 in phases:
         print("[5] full size", flush=True)
         phase_full_size(torch, out)
+    if 6 in phases:
+        print("[6] LM kernels against their plain versions", flush=True)
+        phase_lm_kernels(torch, out)
+    if 7 in phases:
+        print("[7] RecurrentGemma-9B served", flush=True)
+        phase_serve(torch, out, "recurrentgemma-9b")
+    if 8 in phases:
+        print("[8] RWKV6-7B served", flush=True)
+        phase_serve(torch, out, "rwkv6-7b")
     kernels = []
     if "level_split" in out and "launches" in out:
         for name, replaces in (("level_split", "src/repro/kernels/histogram.py:328"),
@@ -404,6 +817,14 @@ def main() -> int:
             kernels.append(dict(name=name, route="cuda",
                                 source="src/repro_torch/kernels/csrc/histogram.cu",
                                 replaces=replaces, launches=out["launches"][name],
+                                **out[name]))
+    for name, replaces in (("flash_attention", "src/repro/kernels/flash_attention.py:115"),
+                           ("rglru", "src/repro/kernels/rglru.py:75"),
+                           ("rwkv6", "src/repro/kernels/rwkv6.py:97")):
+        if name in out and name in out.get("lm_launches", {}):
+            kernels.append(dict(name=name, route="cuda",
+                                source=f"src/repro_torch/kernels/csrc/{name}.cu",
+                                replaces=replaces, launches=out["lm_launches"][name],
                                 **out[name]))
     print("kernels " + "; ".join(
         f"{k['name']}: launches {k['launches']}, ms {k['ms']:.4f}, plain_ms "

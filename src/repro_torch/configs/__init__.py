@@ -1,0 +1,59 @@
+"""Architecture configs (public-literature specs), copied from the JAX
+package's ``configs/``.
+
+``get_config(arch_id)`` returns the FULL ArchConfig as assigned;
+``get_smoke_config(arch_id)`` a reduced config of the same family for CPU
+tests. This slice of the port carries the two families whose layers run
+the LM kernels: RecurrentGemma-9B (flash attention and RG-LRU) and
+RWKV6-7B (RWKV-6). The other architectures of the JAX package raise
+NotImplementedError until their modules are ported.
+"""
+from __future__ import annotations
+
+import importlib
+
+ARCH_IDS = (
+    "qwen2_1_5b",
+    "gemma3_12b",
+    "tinyllama_1_1b",
+    "gemma_2b",
+    "rwkv6_7b",
+    "whisper_medium",
+    "recurrentgemma_9b",
+    "qwen3_moe_235b",
+    "arctic_480b",
+    "internvl2_1b",
+)
+PORTED = ("rwkv6_7b", "recurrentgemma_9b")
+
+# canonical external ids (dashes) → module names
+_ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
+_ALIASES.update({
+    "qwen2-1.5b": "qwen2_1_5b",
+    "tinyllama-1.1b": "tinyllama_1_1b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b",
+    "arctic-480b": "arctic_480b",
+    "internvl2-1b": "internvl2_1b",
+})
+
+
+def resolve(arch_id: str) -> str:
+    return _ALIASES.get(arch_id, arch_id)
+
+
+def _module(arch_id: str):
+    name = resolve(arch_id)
+    if name in ARCH_IDS and name not in PORTED:
+        raise NotImplementedError(f"{arch_id}: this architecture is not ported yet "
+                                  f"(ported: {', '.join(PORTED)})")
+    if name not in ARCH_IDS:
+        raise KeyError(f"unknown architecture {arch_id!r}")
+    return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def get_config(arch_id: str):
+    return _module(arch_id).config()
+
+
+def get_smoke_config(arch_id: str):
+    return _module(arch_id).smoke_config()

@@ -1,10 +1,12 @@
-"""Build and load the CUDA kernels of ``csrc/`` as a shared library.
+"""Build and load the CUDA kernels of ``csrc/`` as one shared library.
 
 The sources have a plain C interface, so ``nvcc`` compiles them in seconds
 into ``build/`` at the root of the checkout (listed in ``.gitignore``) and
-:func:`load` binds them with ``ctypes``. The library's file name carries a
-hash of the source and the flags, so an edited source is never served from
-a stale build. Executor threads can reach the first launch together: the
+:func:`load` binds them with ``ctypes``. Every ``csrc/*.cu`` is compiled to
+an object by its own ``nvcc``, all started together, and the objects are
+linked into one library. Its file name carries a hash of every source and
+header and of the flags, so an edited source is never served from a stale
+build. Executor threads can reach the first launch together: the
 build runs once under a lock, and the library is written under a temporary
 name and renamed into place, so no process ever loads a half-written file.
 """
@@ -19,12 +21,12 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["load", "BUILD_DIR", "SOURCE"]
+__all__ = ["load", "BUILD_DIR", "CSRC"]
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "histogram.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -33,6 +35,11 @@ _SIGNATURES = {
     "repro_accumulate_smem": ([_I, _I], ctypes.c_longlong),
     "repro_histogram": ([_P] * 6 + [_I] * 7 + [_P], _I),
     "repro_level_split": ([_P] * 7 + [_F, _F, _I] + [_P] * 5 + [_I] * 8 + [_P], _I),
+    "repro_flash_max_head_dim": ([], _I),
+    "repro_flash_attention": ([_P] * 4 + [_I] * 7 + [_F, _F, _I, _I, _P], _I),
+    "repro_rglru": ([_P] * 7 + [_I] * 4 + [_F, _P], _I),
+    "repro_rwkv6_smem": ([_I, _I], ctypes.c_longlong),
+    "repro_rwkv6": ([_P] * 8 + [_I] * 6 + [_P], _I),
 }
 
 _lock = threading.Lock()
@@ -54,19 +61,50 @@ def _nvcc() -> str:
                        "and need the CUDA toolkit")
 
 
+def _sources() -> list[Path]:
+    """Every kernel source of the checkout, in a fixed order."""
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):       # sources and headers
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def _build(out: Path) -> None:
     global build_seconds, build_log
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    tag = f"{os.getpid()}.{threading.get_ident()}"
+    objs = [out.with_name(f"{src.stem}.{tag}.o") for src in _sources()]
+    tmp = out.with_name(f"{out.name}.{tag}.tmp")
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
+    try:
+        procs = [subprocess.Popen([nvcc, *_FLAGS, "-c", "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True)
+                 for src, obj in zip(_sources(), objs)]
+        logs = []
+        for src, proc in zip(_sources(), procs):
+            _, err = proc.communicate()
+            logs.append(err)
+            if proc.returncode != 0:
+                for other in procs:
+                    other.wait()
+                raise RuntimeError(f"nvcc failed on {src.name}:\n{err}")
+        link = subprocess.run([nvcc, *_FLAGS[:2], "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"linking the kernels failed:\n{link.stderr}")
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{proc.stderr}")
-    os.replace(tmp, out)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stderr
+    build_log = "".join(logs)
 
 
 def load() -> ctypes.CDLL:
@@ -76,9 +114,7 @@ def load() -> ctypes.CDLL:
         return _lib
     with _lock:
         if _lib is None:
-            digest = hashlib.sha256(SOURCE.read_bytes()
-                                    + " ".join(_FLAGS).encode()).hexdigest()[:16]
-            out = BUILD_DIR / f"libhistogram-{digest}.so"
+            out = BUILD_DIR / f"libreprokernels-{_digest()}.so"
             if not out.exists():
                 _build(out)
             lib = ctypes.CDLL(str(out))

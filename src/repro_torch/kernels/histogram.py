@@ -22,11 +22,9 @@ CPU. Oracles: :func:`repro_torch.kernels.ref.histogram_ref` /
 """
 from __future__ import annotations
 
-import threading
-
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _launch
 
 __all__ = ["histogram_cuda", "fused_level_split_cuda", "launch_counts",
            "reset_launch_counts"]
@@ -37,26 +35,18 @@ _PARTIAL_BYTES_CAP = 64 << 20
 _MIN_CHUNK_ROWS = 1024
 _MAX_GRID_DIM = 65535
 
-_count_lock = threading.Lock()
 _device_info: dict[int, tuple[int, int]] = {}
-
-
-def _count(fn) -> None:
-    with _count_lock:
-        fn.launches += 1
+_NAMES = ("histogram", "level_split")
 
 
 def launch_counts() -> dict[str, int]:
-    """Launches of each wrapper since the last :func:`reset_launch_counts`."""
-    with _count_lock:
-        return {"histogram": histogram_cuda.launches,
-                "level_split": fused_level_split_cuda.launches}
+    """Launches of the two GBDT wrappers since the last
+    :func:`reset_launch_counts` (``kernels.launch_counts`` has every kernel)."""
+    return _launch.launch_counts(_NAMES)
 
 
 def reset_launch_counts() -> None:
-    with _count_lock:
-        histogram_cuda.launches = 0
-        fused_level_split_cuda.launches = 0
+    _launch.reset_launch_counts(_NAMES)
 
 
 def _sm_count_and_smem(device: torch.device) -> tuple[int, int]:
@@ -95,25 +85,14 @@ def _plan(device, n_rows: int, n_features: int, n_bins: int, n_acc: int):
     return -(-n_rows // chunk_rows), chunk_rows, nodes_per_tile
 
 
-def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_rows(bins, grad, hess, node):
     if bins.dim() != 2:
         raise ValueError(f"bins must be (rows, features), got shape {tuple(bins.shape)}")
     r, f = bins.shape
-    _check("bins", bins, torch.int32, (r, f))
-    _check("grad", grad, torch.float32, (r,))
-    _check("hess", hess, torch.float32, (r,))
-    _check("node", node, torch.int32, (r,))
+    _launch.check("bins", bins, torch.int32, (r, f))
+    _launch.check("grad", grad, torch.float32, (r,))
+    _launch.check("hess", hess, torch.float32, (r,))
+    _launch.check("node", node, torch.int32, (r,))
     for t in (grad, hess, node):
         if t.device != bins.device:
             raise ValueError("bins, grad, hess and node must share one device")
@@ -122,12 +101,7 @@ def _check_rows(bins, grad, hess, node):
     return r, f
 
 
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        text = _build.load().repro_error_string(err).decode()
-        raise RuntimeError(f"{what}: CUDA error {err} ({text})")
-
-
+@_launch.counted("histogram")
 def histogram_cuda(bins, grad, hess, node, *, n_nodes: int, n_bins: int):
     """Per-(node, feature, bin) grad/hess sums on the card; see
     ``ref.histogram_ref``. bins: (R, F) int32 in [0, n_bins); grad, hess:
@@ -147,14 +121,12 @@ def histogram_cuda(bins, grad, hess, node, *, n_nodes: int, n_bins: int):
             partial.data_ptr(), hist.data_ptr(), r, f, n_bins, n_nodes,
             n_chunks, chunk_rows, npt,
             torch.cuda.current_stream(bins.device).cuda_stream)
-    _raise_on(err, "histogram kernel launch")
-    _count(histogram_cuda)
+    _launch.raise_on(err, "histogram kernel launch")
+    _launch.count(histogram_cuda)
     return hist
 
 
-histogram_cuda.launches = 0
-
-
+@_launch.counted("level_split")
 def fused_level_split_cuda(bins, grad, hess, node, *, n_nodes: int, n_bins: int,
                            lam, min_child_weight, bin_limit=None,
                            feat_mask=None, parent_hist=None,
@@ -186,14 +158,14 @@ def fused_level_split_cuda(bins, grad, hess, node, *, n_nodes: int, n_bins: int,
     if n_acc < 1 or n_bins < 1:
         raise ValueError("n_nodes and n_bins must be >= 1")
     if subtract:
-        _check("parent_hist", parent_hist, torch.float32, (n_acc, f, n_bins, 2))
+        _launch.check("parent_hist", parent_hist, torch.float32, (n_acc, f, n_bins, 2))
         if small_is_left is None:
             raise ValueError("subtraction needs small_is_left")
         sil = small_is_left.to(torch.int32).contiguous()
-        _check("small_is_left", sil, torch.int32, (n_acc,))
+        _launch.check("small_is_left", sil, torch.int32, (n_acc,))
     fm = (torch.ones(f, dtype=torch.int32, device=dev) if feat_mask is None
           else torch.as_tensor(feat_mask, device=dev).to(torch.int32).contiguous())
-    _check("feat_mask", fm, torch.int32, (f,))
+    _launch.check("feat_mask", fm, torch.int32, (f,))
     blim = n_bins if bin_limit is None else int(bin_limit)
     n_chunks, chunk_rows, npt = _plan(dev, r, f, n_bins, n_acc)
     partial = torch.empty((max(n_chunks, 1), n_acc, f, n_bins, 2),
@@ -212,9 +184,7 @@ def fused_level_split_cuda(bins, grad, hess, node, *, n_nodes: int, n_bins: int,
             best_feat.data_ptr(), best_split.data_ptr(),
             r, f, n_bins, n_nodes, int(subtract), n_chunks, chunk_rows, npt,
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "level-split kernel launch")
-    _count(fused_level_split_cuda)
+    _launch.raise_on(err, "level-split kernel launch")
+    _launch.count(fused_level_split_cuda)
     return (hist if return_hist else None), best_gain, best_feat, best_split
 
-
-fused_level_split_cuda.launches = 0

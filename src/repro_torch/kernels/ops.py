@@ -1,6 +1,7 @@
 """Dispatching wrappers: CUDA kernel for CUDA tensors, plain PyTorch for CPU.
 
-Estimators call ``ops.*`` only — never a kernel or an oracle directly.
+Estimators and models call ``ops.*`` only — never a kernel or an oracle
+directly.
 Dispatch follows the tensor's device, not a backend probe. ``force``
 overrides it for tests:
 
@@ -10,6 +11,9 @@ overrides it for tests:
     force=None        CUDA tensor → kernel, CPU tensor → plain path
 
 On a CUDA tensor the kernel runs or the call raises: nothing falls back.
+Unlike the TPU dispatch, which sends ragged shapes to the plain path, the
+CUDA kernels take every shape (any sequence length, T=1 included), so on
+the card nothing takes the plain path.
 """
 from __future__ import annotations
 
@@ -17,7 +21,8 @@ import torch
 
 from repro_torch.kernels import ref as _ref
 
-__all__ = ["histogram", "level_split"]
+__all__ = ["attention", "decode_attention", "rglru", "rwkv6", "histogram",
+           "level_split"]
 
 
 def _use_kernel(force, t: torch.Tensor) -> bool:
@@ -27,6 +32,60 @@ def _use_kernel(force, t: torch.Tensor) -> bool:
                                "is CUDA C++ and has no CPU mode")
         return True
     return force is None and t.is_cuda
+
+
+def attention(q, k, v, *, causal=True, window=None, scale=None,
+              logit_softcap=None, force=None, matmul_dtype="float32"):
+    """Multi-head attention (GQA via head-count ratio). See
+    ``attention_ref``. The kernel computes its products in float32 whatever
+    ``matmul_dtype`` says, as the TPU kernel does. The JAX package's
+    ``block_q``/``block_k`` tiling arguments have no counterpart here: the
+    kernel's tiles are fixed and it takes any sequence length."""
+    if _use_kernel(force, q):
+        from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+        return flash_attention_cuda(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+            window=window, scale=scale, logit_softcap=logit_softcap)
+    return _ref.attention_ref(
+        q, k, v, causal=causal, window=window, scale=scale,
+        logit_softcap=logit_softcap, matmul_dtype=matmul_dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, window=None, scale=None,
+                     logit_softcap=None, matmul_dtype="float32"):
+    """Single-token decode over a KV cache: plain PyTorch on every device,
+    as the JAX package leaves it to XLA on both backends (one pass over the
+    cache, no Pallas kernel)."""
+    return _ref.decode_attention_ref(
+        q, k_cache, v_cache, cache_len, window=window, scale=scale,
+        logit_softcap=logit_softcap, matmul_dtype=matmul_dtype)
+
+
+def rglru(x, input_gate, rec_gate, a_param, h0=None, *, c=8.0, force=None):
+    """RG-LRU recurrence. See ``rglru_ref``; returns ``(y, h_T)``."""
+    if _use_kernel(force, x):
+        from repro_torch.kernels.rglru import rglru_cuda
+
+        return rglru_cuda(
+            x.contiguous(), input_gate.contiguous(), rec_gate.contiguous(),
+            a_param.float().contiguous(),
+            None if h0 is None else h0.float().contiguous(), c=c)
+    return _ref.rglru_ref(x, input_gate, rec_gate, a_param, h0, c=c)
+
+
+def rwkv6(r, k, v, w, u, s0=None, *, force=None):
+    """RWKV-6 WKV recurrence. See ``rwkv6_ref``; returns ``(y, S_T)``. The
+    float32 casts of ``w``, ``u`` and ``s0`` are the ones the oracle makes
+    (the JAX package's ``chunk`` argument has no counterpart: the kernel
+    runs the recurrence in time order)."""
+    if _use_kernel(force, r):
+        from repro_torch.kernels.rwkv6 import rwkv6_cuda
+
+        return rwkv6_cuda(
+            r.contiguous(), k.contiguous(), v.contiguous(), w.float().contiguous(),
+            u.float().contiguous(), None if s0 is None else s0.float().contiguous())
+    return _ref.rwkv6_ref(r, k, v, w, u, s0)
 
 
 def _histogram_scatter(bins, grad, hess, node, n_nodes, n_bins):

@@ -1,0 +1,167 @@
+"""Shared neural building blocks for the LM stack.
+
+Ports of the JAX package's ``models/layers.py``: plain functions on tensors
+and parameter dictionaries (a dict, or a :class:`ParamTree` that reads like
+one). Products run in the model's compute dtype (bf16 on the card) with
+float32 accumulation; norms and recurrences accumulate in float32.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = [
+    "Init",
+    "ParamTree",
+    "rmsnorm",
+    "layernorm",
+    "dense",
+    "ffn_apply",
+    "init_ffn",
+    "rope",
+    "causal_conv1d",
+    "init_norm",
+]
+
+
+class Init:
+    """Seeded initializer: every tensor is drawn from one ``torch.Generator``
+    on ``device`` and stored in ``dtype``. The draws are PyTorch's, not
+    ``jax.random``'s: weights carried from the JAX package go through
+    ``transformer.params_from_reference`` instead."""
+
+    def __init__(self, generator: torch.Generator, dtype=torch.float32, device=None):
+        self.generator = generator
+        self.dtype = dtype
+        self.device = torch.device(device) if device is not None else generator.device
+
+    def normal(self, shape, stddev: float | None = None) -> torch.Tensor:
+        std = stddev if stddev is not None else shape[0] ** -0.5
+        x = torch.randn(shape, generator=self.generator, device=self.device,
+                        dtype=torch.float32).mul_(std)
+        return x.to(self.dtype)
+
+    def zeros(self, shape) -> torch.Tensor:
+        return torch.zeros(shape, dtype=self.dtype, device=self.device)
+
+    def ones(self, shape) -> torch.Tensor:
+        return torch.ones(shape, dtype=self.dtype, device=self.device)
+
+    def full(self, shape, value: float) -> torch.Tensor:
+        return torch.full(shape, value, dtype=self.dtype, device=self.device)
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors as an ``nn.Module``: every leaf a frozen
+    ``nn.Parameter``, every sub-dict a child ``ParamTree``, with the same
+    keys. ``tree["wq"]`` and ``tree.get("bq")`` read it like the JAX
+    package's parameter dict; ``.to(device)`` and ``state_dict`` work."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                self.add_module(key, ParamTree(value))
+            else:
+                self.register_parameter(key, nn.Parameter(value, requires_grad=False))
+
+    def __getitem__(self, key: str):
+        try:
+            return getattr(self, key)
+        except AttributeError:
+            raise KeyError(key) from None
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+    def get(self, key: str, default=None):
+        return self[key] if key in self else default
+
+
+def init_norm(init: Init, d: int, kind: str = "rmsnorm") -> dict:
+    if kind == "rmsnorm":
+        return {"scale": init.zeros((d,))}       # gemma convention: (1 + scale)
+    return {"scale": init.ones((d,)), "bias": init.zeros((d,))}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    normed = xf * torch.rsqrt(var + eps)
+    return (normed * (1.0 + params["scale"].float())).to(x.dtype)
+
+
+def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    normed = (xf - mu) * torch.rsqrt(var + eps)
+    out = normed * params["scale"].float() + params["bias"].float()
+    return out.to(x.dtype)
+
+
+def dense(w: torch.Tensor, x: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """x @ w in x's dtype: the weight is cast to it on every call (float32
+    parameters become bf16 operands, as the JAX package does), the product
+    accumulates in float32 and is rounded to x's dtype once."""
+    y = torch.matmul(x, w.to(x.dtype))
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def _gelu_tanh(x):
+    return F.gelu(x, approximate="tanh")
+
+
+_ACTS = {"silu": F.silu, "gelu": _gelu_tanh, "relu": F.relu}
+
+
+def init_ffn(init: Init, d: int, d_ff: int, act: str = "swiglu") -> dict:
+    if act in ("swiglu", "geglu"):
+        return {
+            "w_gate": init.normal((d, d_ff)),
+            "w_up": init.normal((d, d_ff)),
+            "w_down": init.normal((d_ff, d)),
+        }
+    return {"w_up": init.normal((d, d_ff)), "w_down": init.normal((d_ff, d))}
+
+
+def ffn_apply(params, x: torch.Tensor, act: str = "swiglu") -> torch.Tensor:
+    if act in ("swiglu", "geglu"):
+        fn = _ACTS["silu"] if act == "swiglu" else _ACTS["gelu"]
+        h = fn(dense(params["w_gate"], x)) * dense(params["w_up"], x)
+    else:
+        h = _ACTS[act](dense(params["w_up"], x))
+    return dense(params["w_down"], h)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+    """Rotary embedding on split halves. x: (B, T, H, Dh) with Dh even;
+    positions: (T,)."""
+    dh = x.shape[-1]
+    half = dh // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    angles = positions.to(torch.float32)[:, None, None] * freqs      # (T, 1, Dh/2)
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = torch.split(x.float(), half, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def causal_conv1d(w: torch.Tensor, x: torch.Tensor, state: torch.Tensor | None = None):
+    """Depthwise causal conv. w: (width, D); x: (B, T, D); state: (B,
+    width-1, D), the last inputs of the previous chunk. Returns (y,
+    new_state); the RecurrentGemma temporal-conv branch."""
+    width = w.shape[0]
+    b, t, d = x.shape
+    if state is None:
+        state = torch.zeros((b, width - 1, d), dtype=x.dtype, device=x.device)
+    xx = torch.cat([state.to(x.dtype), x], dim=1)                 # (B, T+w-1, D)
+    y = torch.zeros((b, t, d), dtype=torch.float32, device=x.device)
+    wf = w.float()
+    for i in range(width):
+        y = y + xx[:, i:i + t].float() * wf[i]
+    new_state = xx[:, -(width - 1):].clone() if width > 1 else state
+    return y.to(x.dtype), new_state

@@ -1,0 +1,383 @@
+"""The LM stack for serving: config, init, prefill and decode.
+
+The port of the JAX package's ``models/transformer.py``, as far as serving
+needs it:
+  * An architecture is a repeated PATTERN of layer specs plus an optional
+    tail (recurrentgemma: (rec, rec, attn) × 12 + (rec, rec)). The JAX
+    package stacks each pattern position's parameters over the repeats and
+    scans them; here the layers are an ``nn.ModuleList`` in order, layer
+    ``i·len(pattern) + j`` being repeat ``i`` of pattern position ``j``, the
+    tail after them (:func:`layer_specs`).
+  * The decode state (KV caches, recurrent states) is a list with one dict
+    per layer, updated in place by :func:`prefill` and :func:`decode_step`.
+  * ``force`` is threaded down to ``ops`` so a caller can run the plain
+    path on the card (``force="ref"``).
+  * :func:`params_from_reference` carries the JAX package's weights over.
+
+Not ported yet (each raises NotImplementedError where a config needs it):
+mixture-of-experts FFNs, cross-attention and the encoder (whisper), the
+vision and audio stubs, learned positions, and the training loss
+(``train_loss``/``lm_loss``).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.device import default_device
+from repro_torch.models import recurrent
+from repro_torch.models.attention import (
+    AttnCfg,
+    attn_decode,
+    attn_prefill,
+    attn_train,
+    init_attention,
+    init_kv_cache,
+)
+from repro_torch.models.layers import Init, ParamTree, ffn_apply, init_ffn, init_norm, \
+    layernorm, rmsnorm
+
+__all__ = ["LayerSpec", "ArchConfig", "LMParams", "init_params", "params_from_reference",
+           "forward_hidden", "init_decode_state", "decode_step", "prefill",
+           "count_params", "layer_specs"]
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    kind: str = "attn"                 # "attn" | "rglru" | "rwkv"
+    window: int | None = None          # sliding-window attention
+    rope_theta: float | None = None    # per-layer RoPE override (gemma3 local)
+    ffn: str = "dense"                 # "dense" | "moe" | "none"
+    cross_attn: bool = False           # decoder cross-attention (whisper)
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    vocab: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    pattern: tuple[LayerSpec, ...]
+    repeats: int
+    tail: tuple[LayerSpec, ...] = ()
+    ffn_act: str = "swiglu"            # "swiglu" | "geglu" | "gelu"
+    norm: str = "rmsnorm"              # "rmsnorm" | "layernorm"
+    post_norm: bool = False            # gemma3: post-attn/post-ffn norms
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    attn_softcap: float | None = None
+    final_softcap: float | None = None
+    attn_scale: float | None = None
+    attn_matmul: str = "float32"       # "input": bf16 QK/PV operands
+    embed_scale: bool = False          # scale embeddings by sqrt(d_model)
+    tie_embeddings: bool = True
+    # --- recurrent ---
+    lru_width: int = 0
+    conv_width: int = 4
+    rwkv_head_size: int = 64
+    # --- not ported yet: a config that sets one is refused (_check_ported) ---
+    n_experts: int = 0
+    encoder_layers: int = 0
+    learned_pos: bool = False
+    frontend: str = "none"             # "none" | "audio_stub" | "vision_stub"
+    # --- numerics ---
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.pattern) * self.repeats + len(self.tail)
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        return getattr(torch, self.compute_dtype)
+
+    def attn_cfg(self, spec: LayerSpec) -> AttnCfg:
+        return AttnCfg(
+            d_model=self.d_model, n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads, head_dim=self.head_dim,
+            bias=self.qkv_bias, qk_norm=self.qk_norm,
+            window=spec.window,
+            rope_theta=(None if self.learned_pos
+                        else (spec.rope_theta or self.rope_theta)),
+            logit_softcap=self.attn_softcap, scale=self.attn_scale,
+            matmul_dtype=self.attn_matmul,
+        )
+
+
+def layer_specs(cfg: ArchConfig) -> list[LayerSpec]:
+    """Every layer's spec, in the order the stack applies them."""
+    return list(cfg.pattern) * cfg.repeats + list(cfg.tail)
+
+
+def _check_ported(cfg: ArchConfig) -> None:
+    missing = []
+    if cfg.n_experts or any(s.ffn == "moe" for s in layer_specs(cfg)):
+        missing.append("mixture-of-experts FFNs")
+    if cfg.encoder_layers or any(s.cross_attn for s in layer_specs(cfg)):
+        missing.append("the encoder and cross-attention")
+    if cfg.frontend != "none":
+        missing.append(f"the {cfg.frontend} frontend")
+    if cfg.learned_pos:
+        missing.append("learned positions")
+    if missing:
+        raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not ported yet")
+
+
+class LMParams(nn.Module):
+    """The weights of one LM: ``embed``, ``layers`` (an ``nn.ModuleList`` of
+    :class:`ParamTree`, one per layer in order), ``final_norm`` and, for
+    untied embeddings, ``lm_head``."""
+
+    def __init__(self, embed: torch.Tensor, layers: list[dict], final_norm: dict,
+                 lm_head: torch.Tensor | None = None):
+        super().__init__()
+        self.embed = nn.Parameter(embed, requires_grad=False)
+        self.layers = nn.ModuleList(ParamTree(p) for p in layers)
+        self.final_norm = ParamTree(final_norm)
+        self.lm_head = (nn.Parameter(lm_head, requires_grad=False)
+                        if lm_head is not None else None)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def _init_layer(init: Init, cfg: ArchConfig, spec: LayerSpec) -> dict:
+    d = cfg.d_model
+    p: dict = {"norm1": init_norm(init, d, cfg.norm)}
+    if spec.kind == "attn":
+        p["attn"] = init_attention(init, cfg.attn_cfg(spec))
+    elif spec.kind == "rglru":
+        p["rec"] = recurrent.init_rglru_block(init, d, cfg.lru_width or d, cfg.conv_width)
+    elif spec.kind == "rwkv":
+        p.update(recurrent.init_rwkv_block(init, d, cfg.d_ff, cfg.rwkv_head_size))
+        p["norm2"] = init_norm(init, d, cfg.norm)
+        return p
+    else:
+        raise ValueError(f"unknown layer kind {spec.kind!r}")
+    if cfg.post_norm:
+        p["norm1b"] = init_norm(init, d, cfg.norm)
+    if spec.ffn != "none":
+        p["norm2"] = init_norm(init, d, cfg.norm)
+        p["ffn"] = init_ffn(init, d, cfg.d_ff, cfg.ffn_act)
+        if cfg.post_norm:
+            p["norm2b"] = init_norm(init, d, cfg.norm)
+    return p
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> LMParams:
+    """Random weights drawn from a ``torch.Generator`` seeded with ``seed``
+    on ``device`` (the card by default), with the JAX package's shapes and
+    scales. PyTorch's draws differ from ``jax.random``'s: to run the JAX
+    package's weights use :func:`params_from_reference`."""
+    _check_ported(cfg)
+    dev = default_device(device)
+    init = Init(torch.Generator(device=dev).manual_seed(seed), cfg.pdtype, dev)
+    # σ = d^-1/2 keeps TIED unembed logits O(1)
+    embed = init.normal((cfg.vocab, cfg.d_model), stddev=cfg.d_model ** -0.5)
+    layers = [_init_layer(init, cfg, spec) for spec in layer_specs(cfg)]
+    final_norm = init_norm(init, cfg.d_model, cfg.norm)
+    lm_head = None if cfg.tie_embeddings else init.normal((cfg.d_model, cfg.vocab))
+    return LMParams(embed, layers, final_norm, lm_head)
+
+
+def params_from_reference(cfg: ArchConfig, tree: dict, device=None) -> LMParams:
+    """The JAX package's parameter pytree (``repro.models.init_params``), as
+    nested dicts of numpy arrays, as the port's weights on ``device``.
+
+    ``blocks/b{j}`` holds pattern position ``j`` stacked over the repeats:
+    its leaf ``[i]`` becomes layer ``i·len(pattern) + j``; ``tail{j}``
+    follows the stacked layers."""
+    _check_ported(cfg)
+    dev = default_device(device)
+
+    def tensors(node, index=None):
+        if isinstance(node, dict):
+            return {k: tensors(v, index) for k, v in node.items()}
+        arr = np.asarray(node if index is None else node[index])
+        return torch.from_numpy(np.array(arr)).to(dev)
+
+    n_pat = len(cfg.pattern)
+    layers = [tensors(tree["blocks"][f"b{j}"], i)
+              for i in range(cfg.repeats) for j in range(n_pat)]
+    layers += [tensors(tree[f"tail{j}"]) for j in range(len(cfg.tail))]
+    lm_head = None if cfg.tie_embeddings else tensors(tree["lm_head"])
+    return LMParams(tensors(tree["embed"]), layers, tensors(tree["final_norm"]), lm_head)
+
+
+def count_params(params: LMParams) -> int:
+    return sum(p.numel() for p in params.parameters())
+
+
+# ---------------------------------------------------------------------------
+# Layer application
+# ---------------------------------------------------------------------------
+
+def _norm(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+    return rmsnorm(p, x) if cfg.norm == "rmsnorm" else layernorm(p, x)
+
+
+def _ffn_block(cfg: ArchConfig, spec: LayerSpec, p, x: torch.Tensor) -> torch.Tensor:
+    if spec.ffn == "none":
+        return x
+    h = ffn_apply(p["ffn"], _norm(cfg, p["norm2"], x), cfg.ffn_act)
+    if cfg.post_norm:
+        h = _norm(cfg, p["norm2b"], h)
+    return x + h
+
+
+def _rwkv_layer(cfg: ArchConfig, p, x: torch.Tensor, st: dict | None, force):
+    t_out, tstate = recurrent.rwkv_time_mix(p, _norm(cfg, p["norm1"], x), st,
+                                            cfg.rwkv_head_size, force=force)
+    x = x + t_out
+    c_out, cstate = recurrent.rwkv_channel_mix(p, _norm(cfg, p["norm2"], x), st)
+    return x + c_out, {**tstate, **cstate}
+
+
+def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p, x: torch.Tensor,
+                 positions: torch.Tensor, force) -> torch.Tensor:
+    if spec.kind == "rwkv":
+        return _rwkv_layer(cfg, p, x, None, force)[0]
+    h = _norm(cfg, p["norm1"], x)
+    if spec.kind == "attn":
+        h = attn_train(p["attn"], cfg.attn_cfg(spec), h, positions, force=force)
+    else:
+        h, _ = recurrent.rglru_block_apply(p["rec"], h, force=force)
+    if cfg.post_norm:
+        h = _norm(cfg, p["norm1b"], h)
+    return _ffn_block(cfg, spec, p, x + h)
+
+
+def _prefill_layer(cfg: ArchConfig, spec: LayerSpec, p, st: dict, x: torch.Tensor,
+                   positions: torch.Tensor, force) -> torch.Tensor:
+    """One layer over the prompt; fills ``st`` in place."""
+    if spec.kind == "rwkv":
+        x, st["rwkv"] = _rwkv_layer(cfg, p, x, None, force)
+        return x
+    h = _norm(cfg, p["norm1"], x)
+    if spec.kind == "attn":
+        h, st["kv"] = attn_prefill(p["attn"], cfg.attn_cfg(spec), h, positions, st["kv"],
+                                   force=force)
+    else:
+        h, st["rec"] = recurrent.rglru_block_apply(p["rec"], h, None, force=force)
+    if cfg.post_norm:
+        h = _norm(cfg, p["norm1b"], h)
+    return _ffn_block(cfg, spec, p, x + h)
+
+
+def _decode_layer(cfg: ArchConfig, spec: LayerSpec, p, st: dict, x: torch.Tensor,
+                  pos: int, force) -> torch.Tensor:
+    """One layer for one token; updates ``st`` in place."""
+    if spec.kind == "rwkv":
+        x, st["rwkv"] = _rwkv_layer(cfg, p, x, st["rwkv"], force)
+        return x
+    h = _norm(cfg, p["norm1"], x)
+    if spec.kind == "attn":
+        h, st["kv"] = attn_decode(p["attn"], cfg.attn_cfg(spec), h, pos, st["kv"])
+    else:
+        h, st["rec"] = recurrent.rglru_block_apply(p["rec"], h, st["rec"], force=force)
+    if cfg.post_norm:
+        h = _norm(cfg, p["norm1b"], h)
+    return _ffn_block(cfg, spec, p, x + h)
+
+
+# ---------------------------------------------------------------------------
+# Full sequence, prefill, decode
+# ---------------------------------------------------------------------------
+
+def _embed(cfg: ArchConfig, params: LMParams, tokens: torch.Tensor) -> torch.Tensor:
+    x = params.embed[tokens].to(cfg.cdtype)
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.cdtype, device=x.device)
+    return x
+
+
+def _tokens(params: LMParams, tokens) -> torch.Tensor:
+    return torch.as_tensor(tokens, device=params.embed.device).long()
+
+
+def _logits(cfg: ArchConfig, params: LMParams, x: torch.Tensor) -> torch.Tensor:
+    """(B, d) final hidden → (B, vocab) float32 logits: the unembedding is
+    cast to the compute dtype and the product accumulates in float32, as
+    the JAX package's ``preferred_element_type=float32`` does."""
+    w = params.embed.T if cfg.tie_embeddings else params.lm_head
+    logits = torch.matmul(x.float(), w.to(x.dtype).float())
+    if cfg.final_softcap:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    return logits
+
+
+@torch.no_grad()
+def forward_hidden(cfg: ArchConfig, params: LMParams, batch: dict, *,
+                   force=None) -> torch.Tensor:
+    """Embeddings → stack → final norm. batch: ``{"tokens": (B, S)}``."""
+    _check_ported(cfg)
+    x = _embed(cfg, params, _tokens(params, batch["tokens"]))
+    positions = torch.arange(x.shape[1], device=x.device)
+    for spec, p in zip(layer_specs(cfg), params.layers):
+        x = _apply_layer(cfg, spec, p, x, positions, force)
+    return _norm(cfg, params.final_norm, x)
+
+
+def _init_layer_state(cfg: ArchConfig, spec: LayerSpec, batch: int, max_len: int,
+                      cache_dtype, device) -> dict:
+    if spec.kind == "attn":
+        return {"kv": init_kv_cache(cfg.attn_cfg(spec), batch, max_len, cache_dtype,
+                                    device)}
+    if spec.kind == "rglru":
+        return {"rec": recurrent.init_rglru_state(cfg.lru_width or cfg.d_model, batch,
+                                                  cfg.conv_width, device=device)}
+    return {"rwkv": recurrent.init_rwkv_state(cfg.d_model, batch, cfg.rwkv_head_size,
+                                              device=device)}
+
+
+def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
+                      cache_dtype=torch.bfloat16, device=None) -> list[dict]:
+    """One state dict per layer, in layer order: ``{"kv": {"k", "v"}}``
+    caches of (batch, n_kv_heads, max_len, head_dim) for attention,
+    ``{"rec": {"conv", "h"}}`` for RG-LRU, ``{"rwkv": {...}}`` for RWKV."""
+    _check_ported(cfg)
+    dev = default_device(device)
+    return [_init_layer_state(cfg, spec, batch, max_len, cache_dtype, dev)
+            for spec in layer_specs(cfg)]
+
+
+@torch.no_grad()
+def prefill(cfg: ArchConfig, params: LMParams, state: list[dict], batch: dict, *,
+            force=None) -> tuple[torch.Tensor, list[dict]]:
+    """Prompt pass that fills ``state`` in place. batch: ``{"tokens": (B,
+    S)}``. Returns (last-position logits (B, vocab) float32, state ready for
+    decode at pos = S)."""
+    _check_ported(cfg)
+    x = _embed(cfg, params, _tokens(params, batch["tokens"]))
+    positions = torch.arange(x.shape[1], device=x.device)
+    for spec, p, st in zip(layer_specs(cfg), params.layers, state):
+        x = _prefill_layer(cfg, spec, p, st, x, positions, force)
+    x = _norm(cfg, params.final_norm, x)
+    return _logits(cfg, params, x[:, -1]), state
+
+
+@torch.no_grad()
+def decode_step(cfg: ArchConfig, params: LMParams, state: list[dict], tokens,
+                pos: int, *, force=None) -> tuple[torch.Tensor, list[dict]]:
+    """One decode step. tokens: (B, 1); pos: index of the new token. Updates
+    ``state`` in place; returns (logits (B, vocab) float32, state)."""
+    x = _embed(cfg, params, _tokens(params, tokens))
+    pos = int(pos)
+    for spec, p, st in zip(layer_specs(cfg), params.layers, state):
+        x = _decode_layer(cfg, spec, p, st, x, pos, force)
+    x = _norm(cfg, params.final_norm, x)
+    return _logits(cfg, params, x[:, 0]), state
+

@@ -10,7 +10,7 @@ Tolerances: histograms within ``atol=1e-4, rtol=1e-5`` of the plain path
 (float sums in another order); split decisions tie-aware (the kernel's
 candidate has a plain-path gain within ``GAIN_RTOL`` of the plain best);
 integer-valued grad/hess bit-equal (every sum is exact); two launches
-bit-identical.
+bit-identical. The LM kernels' tolerances are stated above their tests.
 """
 import numpy as np
 import pytest
@@ -135,3 +135,181 @@ def test_cuda_wrappers_count_launches_and_check_inputs(cuda):
     assert launch_counts() == {"histogram": 1, "level_split": 1}
     with pytest.raises(ValueError, match="int32"):
         ops.histogram(t[0].long(), *t[1:], n_nodes=2, n_bins=8)
+
+
+# ---------------------------------------------------------------------------
+# LM kernels: flash attention, RG-LRU, RWKV-6
+#
+# Tolerances: float32 inputs within rtol 1e-4 (attention: atol 1e-5; the
+# recurrences: atol 1e-4, sums of up to 64 terms in another order and
+# expf/expm1f against PyTorch's); bf16 outputs within one bf16 ulp of the
+# output's scale (2**-8 of max|out|, plus the same relative bound), since
+# the kernel and the plain version each round a float32 result to bf16 once.
+# ---------------------------------------------------------------------------
+
+ATTN_GRID = [  # b, hq, hkv, tq, tk, d, causal, window, softcap
+    (1, 2, 2, 128, 128, 64, True, None, None),
+    (2, 4, 2, 100, 100, 64, True, None, None),      # GQA, ragged T
+    (1, 4, 1, 77, 77, 256, True, 32, None),          # MQA, window, D=256
+    (1, 2, 2, 65, 65, 32, False, None, None),        # bidirectional
+    (2, 8, 2, 130, 130, 128, True, None, 50.0),      # softcap
+    (2, 4, 2, 1, 64, 64, True, None, None),          # decode-style Tq=1
+    (1, 2, 1, 40, 200, 16, True, 50, None),          # chunked prefill offset
+    (1, 2, 2, 200, 40, 64, True, None, None),        # Tq > Tk: rows see no key
+]
+
+
+def _lm(seed, *shapes, device, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device, dtype)
+            for s in shapes]
+
+
+def _bf16_close(got, want):
+    tol = 2.0 ** -8 * float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=2.0 ** -8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,d,causal,window,cap", ATTN_GRID)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_attention_vs_plain(cuda, b, hq, hkv, tq, tk, d, causal, window,
+                                       cap, dtype):
+    dt = getattr(torch, dtype)
+    q, k, v = _lm(5, (b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d), device=cuda, dtype=dt)
+    kw = dict(causal=causal, window=window, logit_softcap=cap)
+    got = ops.attention(q, k, v, force="kernel", **kw)
+    want = ref.attention_ref(q, k, v, **kw)
+    assert got.dtype == dt and got.shape == q.shape
+    dead = torch.isnan(want)            # rows that see no key: NaN in the oracle, 0 here
+    assert bool((got[dead] == 0).all())
+    got, want = got.masked_fill(dead, 0), want.masked_fill(dead, 0)
+    if dt == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+    else:
+        _bf16_close(got, want)
+    assert torch.equal(got, ops.attention(q, k, v, force="kernel", **kw).masked_fill(dead, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,d,with_h0", [(1, 64, 128, False), (2, 100, 96, True),
+                                           (3, 1, 256, True), (2, 37, 33, False)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rglru_vs_plain(cuda, b, t, d, with_h0, dtype):
+    dt = getattr(torch, dtype)
+    x, ig, rg = _lm(6, (b, t, d), (b, t, d), (b, t, d), device=cuda, dtype=dt)
+    a, h0 = _lm(7, (d,), (b, d), device=cuda)
+    h0 = h0 if with_h0 else None
+    y, h = ops.rglru(x, ig, rg, a, h0, force="kernel")
+    y_r, h_r = ref.rglru_ref(x, ig, rg, a, h0)
+    assert y.dtype == dt and h.dtype == torch.float32
+    torch.testing.assert_close(h, h_r, atol=1e-4, rtol=1e-4)
+    if dt == torch.float32:
+        torch.testing.assert_close(y, y_r, atol=1e-4, rtol=1e-4)
+    else:
+        _bf16_close(y, y_r)
+    y2, h2 = ops.rglru(x, ig, rg, a, h0, force="kernel")
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+@pytest.mark.cuda
+def test_cuda_rglru_state_chaining(cuda):
+    x, ig, rg = _lm(8, (2, 64, 128), (2, 64, 128), (2, 64, 128), device=cuda)
+    (a,) = _lm(9, (128,), device=cuda)
+    y, h = ops.rglru(x, ig, rg, a, force="kernel")
+    y1, h1 = ops.rglru(x[:, :40], ig[:, :40], rg[:, :40], a, force="kernel")
+    y2, h2 = ops.rglru(x[:, 40:], ig[:, 40:], rg[:, 40:], a, h1, force="kernel")
+    # the same float32 steps in the same order: bit-equal
+    assert torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(h2, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,t,dk,dv,with_s0", [(1, 2, 64, 32, 32, False),
+                                                 (2, 2, 100, 64, 64, True),
+                                                 (1, 1, 96, 16, 64, False),
+                                                 (2, 3, 1, 64, 64, True)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rwkv6_vs_plain(cuda, b, h, t, dk, dv, with_s0, dtype):
+    dt = getattr(torch, dtype)
+    r, k, v = _lm(10, (b, h, t, dk), (b, h, t, dk), (b, h, t, dv), device=cuda, dtype=dt)
+    w, u, s0 = _lm(11, (b, h, t, dk), (h, dk), (b, h, dk, dv), device=cuda)
+    s0 = s0 if with_s0 else None
+    y, s = ops.rwkv6(r, k, v, w, u, s0, force="kernel")
+    y_r, s_r = ref.rwkv6_ref(r, k, v, w, u, s0)
+    assert y.dtype == dt and s.dtype == torch.float32
+    torch.testing.assert_close(s, s_r, atol=1e-4, rtol=1e-4)
+    if dt == torch.float32:
+        torch.testing.assert_close(y, y_r, atol=1e-4, rtol=1e-4)
+    else:
+        _bf16_close(y, y_r)
+    y2, s2 = ops.rwkv6(r, k, v, w, u, s0, force="kernel")
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
+@pytest.mark.cuda
+def test_cuda_rwkv6_state_chaining(cuda):
+    r, k, v, w = _lm(12, *[(1, 2, 64, 32)] * 4, device=cuda)
+    (u,) = _lm(13, (2, 32), device=cuda)
+    y, s = ops.rwkv6(r, k, v, w, u, force="kernel")
+    y1, s1 = ops.rwkv6(*(x[:, :, :24] for x in (r, k, v, w)), u, force="kernel")
+    y2, s2 = ops.rwkv6(*(x[:, :, 24:] for x in (r, k, v, w)), u, s1, force="kernel")
+    assert torch.equal(torch.cat([y1, y2], 2), y) and torch.equal(s2, s)
+
+
+@pytest.mark.cuda
+def test_cuda_lm_wrappers_count_launches_and_check_inputs(cuda):
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.rglru import rglru_cuda
+
+    q, k = _lm(14, (1, 2, 8, 16), (1, 1, 8, 16), device=cuda)
+    x, a = _lm(15, (1, 4, 8), (8,), device=cuda)
+    reset_launch_counts()
+    ops.attention(q, k, k)
+    ops.rglru(x, x, x, a)
+    ops.rwkv6(q, q, q, q, q[0, :, 0])
+    ops.decode_attention(q[:, :, :1], k, k, 8)     # plain PyTorch: no kernel
+    assert launch_counts() == {"flash_attention": 1, "histogram": 0, "level_split": 0,
+                               "rglru": 1, "rwkv6": 1}
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_cuda(q.transpose(2, 3), k, k)
+    with pytest.raises(ValueError, match="float32"):
+        rglru_cuda(x, x, x, a.half())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention_cuda(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention_cuda(q, *_lm(16, (1, 3, 8, 16), (1, 3, 8, 16), device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "rwkv6_7b"])
+def test_cuda_lm_path_matches_plain_path(cuda, arch):
+    """The smoke configs in float32 on the card: prefill and decode logits
+    through the kernels within 1e-4 of the plain path (float32 sums in
+    another order), and the same greedy tokens from both serves."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import decode_step, init_decode_state, init_params, prefill
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = dataclasses.replace(configs.get_smoke_config(arch), compute_dtype="float32")
+    params = init_params(cfg, seed=0, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(17).integers(0, cfg.vocab, (3, 21)))
+    states = [init_decode_state(cfg, 3, 32, torch.float32, cuda) for _ in range(2)]
+    reset_launch_counts()
+    logits = [prefill(cfg, params, st, {"tokens": toks}, force=f)[0]
+              for st, f in zip(states, (None, "ref"))]
+    assert sum(launch_counts().values()) > 0
+    torch.testing.assert_close(logits[0], logits[1], atol=1e-4, rtol=1e-4)
+    for pos in range(21, 25):
+        nxt = torch.argmax(logits[1], -1)[:, None]
+        logits = [decode_step(cfg, params, st, nxt, pos, force=f)[0]
+                  for st, f in zip(states, (None, "ref"))]
+        torch.testing.assert_close(logits[0], logits[1], atol=1e-4, rtol=1e-4)
+    waves = [[Request(i, toks[i, : 21 - 5 * i].numpy(), max_new_tokens=6) for i in range(3)]
+             for _ in range(2)]
+    outs = [ServeEngine(cfg, params, batch_size=4, max_len=32, cache_dtype=torch.float32,
+                        force=f).serve(w) for w, f in zip(waves, (None, "ref"))]
+    assert [r.output for r in outs[0]] == [r.output for r in outs[1]]

@@ -1,0 +1,210 @@
+"""The port's LM kernel layer against the JAX package's.
+
+The same seeded numpy inputs go through ``repro.kernels`` (JAX on the CPU:
+the oracle ``ref.*`` and the Pallas kernel in interpret mode through
+``ops.*(..., force="kernel")``, as ``tests/test_kernels.py`` runs them) and
+``repro_torch.kernels.ops`` on CPU tensors, which is the plain PyTorch
+version. Tolerances: float32 within 2e-5 of the JAX oracle (the same
+arithmetic, another framework's transcendental functions and sum order),
+bf16 within 2e-2 (each side rounds one float32 result to bf16: up to one
+bf16 ulp); against the chunked Pallas RWKV-6 kernel 5e-3, the tolerance
+``tests/test_kernels.py`` holds it to the oracle with. The CUDA kernels
+themselves run only on a card: ``test_torch_kernels_cuda.py`` and
+``chip_smoke.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+# the port needs PyTorch; where it is not installed only the JAX suite runs
+torch = pytest.importorskip("torch")
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+
+ATTN_GRID = [  # the shape grid of tests/test_kernels.py
+    (1, 2, 2, 128, 64, True, None),
+    (2, 4, 2, 256, 64, True, None),      # GQA
+    (1, 4, 1, 256, 128, True, None),     # MQA
+    (1, 2, 2, 256, 64, False, None),     # bidirectional
+    (1, 2, 1, 256, 64, True, 64),        # sliding window
+]
+RAGGED_ATTN = [  # b, hq, hkv, tq, tk, d, window: shapes the TPU dispatch sends to XLA
+    (2, 4, 2, 100, 100, 32, None),
+    (1, 4, 1, 1, 64, 16, None),          # decode-style Tq=1
+    (1, 2, 1, 37, 90, 16, 20),           # chunked-prefill offset, window
+]
+
+
+def _inputs(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=s).astype(np.float32) for s in shapes]
+
+
+def _both(arrays, dtype="float32"):
+    return ([jnp.asarray(a, getattr(jnp, dtype)) for a in arrays],
+            [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays])
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x, np.float32)
+
+
+def _close(port, want, tol):
+    np.testing.assert_allclose(_np(port), _np(want), atol=tol, rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,t,d,causal,window", ATTN_GRID)
+def test_attention_matches_reference(b, hq, hkv, t, d, causal, window, dtype):
+    (jq, jk, jv), (q, k, v) = _both(_inputs(0, (b, hq, t, d), (b, hkv, t, d),
+                                            (b, hkv, t, d)), dtype)
+    kw = dict(causal=causal, window=window)
+    got = ops.attention(q, k, v, **kw)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    _close(got, jref.attention_ref(jq, jk, jv, **kw), tol)
+    _close(got, jops.attention(jq, jk, jv, block_q=128, block_k=128, force="kernel", **kw),
+           tol)
+
+
+def test_attention_softcap_matches_reference():
+    (jq, jk, jv), (q, k, v) = _both(_inputs(1, *[(1, 2, 128, 64)] * 3))
+    got = ops.attention(q, k, v, logit_softcap=30.0)
+    _close(got, jref.attention_ref(jq, jk, jv, logit_softcap=30.0), 2e-5)
+    _close(got, jops.attention(jq, jk, jv, logit_softcap=30.0, block_q=64, block_k=64,
+                               force="kernel"), 2e-5)
+
+
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,d,window", RAGGED_ATTN)
+def test_attention_ragged_shapes_match_reference(b, hq, hkv, tq, tk, d, window):
+    (jq, jk, jv), (q, k, v) = _both(_inputs(2, (b, hq, tq, d), (b, hkv, tk, d),
+                                            (b, hkv, tk, d)))
+    got = ops.attention(q, k, v, window=window, force="ref")
+    _close(got, jref.attention_ref(jq, jk, jv, window=window), 2e-5)
+
+
+@pytest.mark.parametrize("window", [None, 24])
+def test_decode_attention_matches_reference(window):
+    b, hq, hkv, s, d, n = 2, 4, 2, 48, 32, 30
+    (jq, jk, jv), (q, k, v) = _both(_inputs(3, (b, hq, 1, d), (b, hkv, s, d), (b, hkv, s, d)))
+    got = ops.decode_attention(q, k, v, n, window=window)
+    _close(got, jref.decode_attention_ref(jq, jk, jv, n, window=window), 2e-5)
+    # one decode position == the last row of full attention over the prefix
+    full = ops.attention(torch.cat([torch.zeros(b, hq, n - 1, d), q], 2), k[:, :, :n],
+                         v[:, :, :n], window=window)
+    _close(got[:, :, 0], full[:, :, -1], 2e-5)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,t,d", [(1, 64, 128), (2, 128, 256), (1, 8, 128), (3, 1, 64),
+                                   (2, 13, 40)])
+def test_rglru_matches_reference(b, t, d):
+    arrays = _inputs(4, (b, t, d), (b, t, d), (b, t, d), (d,), (b, d))
+    (jx, jig, jrg, ja, jh0), (x, ig, rg, a, h0) = _both(arrays)
+    for th0, jh in ((None, None), (h0, jh0)):
+        y, h = ops.rglru(x, ig, rg, a, th0)
+        yr, hr = jref.rglru_ref(jx, jig, jrg, ja, jh)
+        _close(y, yr, 2e-5)
+        _close(h, hr, 2e-5)
+    if t % 8 == 0 and d % 128 == 0:       # shapes the Pallas kernel takes
+        yk, hk = jops.rglru(jx, jig, jrg, ja, force="kernel")
+        y, h = ops.rglru(x, ig, rg, a)
+        _close(y, yk, 2e-5)
+        _close(h, hk, 2e-5)
+
+
+def test_rglru_bf16_matches_reference():
+    arrays = _inputs(5, (2, 32, 128), (2, 32, 128), (2, 32, 128), (128,))
+    (jx, jig, jrg, _), (x, ig, rg, _) = _both(arrays, "bfloat16")
+    ja, a = jnp.asarray(arrays[3]), torch.from_numpy(arrays[3])
+    y, h = ops.rglru(x, ig, rg, a)
+    yr, hr = jref.rglru_ref(jx, jig, jrg, ja)
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    _close(y, yr, 2e-2)
+    _close(h, hr, 2e-5)
+
+
+def test_rglru_state_chaining():
+    """[0:T] in one call == [0:T/2] then [T/2:T] with the carried state."""
+    (x, ig, rg, a) = _both(_inputs(6, *[(1, 64, 128)] * 3, (128,)))[1]
+    y, h = ops.rglru(x, ig, rg, a)
+    y1, h1 = ops.rglru(x[:, :29], ig[:, :29], rg[:, :29], a)
+    y2, h2 = ops.rglru(x[:, 29:], ig[:, 29:], rg[:, 29:], a, h1)
+    assert torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(h2, h)
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,h,t,dk,dv,chunk", [
+    (1, 2, 64, 32, 32, 16),
+    (2, 2, 128, 64, 64, 64),
+    (1, 1, 96, 16, 64, 32),
+    (2, 3, 1, 16, 16, 1),                # one decode step
+    (1, 2, 21, 8, 12, 7),                # ragged T
+])
+def test_rwkv6_matches_reference(b, h, t, dk, dv, chunk):
+    arrays = _inputs(7, (b, h, t, dk), (b, h, t, dk), (b, h, t, dv), (b, h, t, dk), (h, dk),
+                     (b, h, dk, dv))
+    (jr, jk, jv, jw, ju, js0), (r, k, v, w, u, s0) = _both(arrays)
+    for ts0, js in ((None, None), (s0, js0)):
+        y, s = ops.rwkv6(r, k, v, w, u, ts0)
+        yr, sr = jref.rwkv6_ref(jr, jk, jv, jw, ju, js)
+        _close(y, yr, 2e-5)
+        _close(s, sr, 2e-5)
+    yk, sk = jops.rwkv6(jr, jk, jv, jw, ju, chunk=chunk, force="kernel")
+    y, s = ops.rwkv6(r, k, v, w, u)
+    _close(y, yk, 5e-3)
+    _close(s, sk, 5e-3)
+
+
+def test_rwkv6_bf16_matches_reference():
+    arrays = _inputs(8, (2, 2, 32, 16), (2, 2, 32, 16), (2, 2, 32, 16), (2, 2, 32, 16),
+                     (2, 16))
+    (jr, jk, jv, _, _), (r, k, v, _, _) = _both(arrays, "bfloat16")
+    jw, ju = jnp.asarray(arrays[3]), jnp.asarray(arrays[4])
+    w, u = torch.from_numpy(arrays[3]), torch.from_numpy(arrays[4])
+    y, s = ops.rwkv6(r, k, v, w, u)
+    yr, sr = jref.rwkv6_ref(jr, jk, jv, jw, ju)
+    assert y.dtype == torch.bfloat16 and s.dtype == torch.float32
+    _close(y, yr, 2e-2)
+    _close(s, sr, 2e-5)
+
+
+def test_rwkv6_state_chaining():
+    (r, k, v, w, u) = _both(_inputs(9, *[(1, 2, 64, 32)] * 4, (2, 32)))[1]
+    y, s = ops.rwkv6(r, k, v, w, u)
+    y1, s1 = ops.rwkv6(*(x[:, :, :40] for x in (r, k, v, w)), u)
+    y2, s2 = ops.rwkv6(*(x[:, :, 40:] for x in (r, k, v, w)), u, s1)
+    assert torch.equal(torch.cat([y1, y2], 2), y) and torch.equal(s2, s)
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+
+def test_cpu_tensors_take_the_plain_path_and_force_kernel_raises():
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    (q, k, v) = _both(_inputs(10, *[(1, 2, 16, 8)] * 3))[1]
+    x, a = torch.from_numpy(_inputs(11, (1, 4, 8))[0]), torch.zeros(8)
+    reset_launch_counts()
+    ops.attention(q, k, v)
+    ops.rglru(x, x, x, a)
+    ops.rwkv6(q, q, q, q, q[0, :, 0])
+    assert all(n == 0 for n in launch_counts().values())
+    for call in (lambda: ops.attention(q, k, v, force="kernel"),
+                 lambda: ops.rglru(x, x, x, a, force="kernel"),
+                 lambda: ops.rwkv6(q, q, q, q, q[0, :, 0], force="kernel")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
