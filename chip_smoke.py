@@ -12,9 +12,11 @@ or any phase fails. Phases:
 1. device: the card's name and power limit, and the kernels' build time
    (``nvcc`` builds ``src/repro_torch/kernels/csrc`` on first use);
 2. each CUDA kernel against its plain PyTorch version at the search path's
-   shapes (R = 800,000 rows, F = 28): histograms within tolerance, split
+   shapes (R = 800,000 rows, F = 28; uniform bins and, at B = 64 and 256,
+   90 % of each feature's rows in bin 0): histograms within tolerance, split
    decisions tie-aware, integer-valued sums bit-equal, two launches
-   bit-identical; kernel, plain and library times beside the bound;
+   bit-identical; kernel, plain and library times beside the bound; and
+   each kernel's registers and spill bytes (phase 1);
 3. the search path: ``Session(SearchSpec(...)).results(train, valid)`` over
    a GBDT grid on 1,000,000 HIGGS-like rows, with launch counts showing that
    every tree level went through the level kernel;
@@ -60,6 +62,7 @@ R_KERNEL, F_KERNEL = 800_000, 28
 HIST_TOL = dict(rtol=1e-4, atol=1e-3)   # float sums in another order
 GAIN_RTOL = 1e-4                        # gain tolerance, see _decisions_tie_aware
 AUC_TOL = 5e-3
+SKEW_SHARE = 0.9                        # phase 2's skewed cells: rows in bin 0
 
 
 def _bound_ms(n_bytes: float, n_flops: float,
@@ -87,9 +90,15 @@ def _check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def _level_inputs(torch, gen, r, f, nb, nn, integer=False):
+def _level_inputs(torch, gen, r, f, nb, nn, integer=False, skew=False):
+    """Seeded level inputs on the card. ``skew``: SKEW_SHARE of each
+    feature's rows in bin 0 (a zero-inflated quantized column), the rest
+    uniform."""
     dev = torch.device("cuda")
     bins = torch.randint(0, nb, (r, f), generator=gen, device=dev, dtype=torch.int32)
+    if skew:
+        zero = torch.rand((r, f), generator=gen, device=dev) < SKEW_SHARE
+        bins = bins.masked_fill(zero, 0)
     if integer:
         g = torch.randint(-8, 9, (r,), generator=gen, device=dev).float()
         h = torch.randint(1, 5, (r,), generator=gen, device=dev).float()
@@ -100,7 +109,24 @@ def _level_inputs(torch, gen, r, f, nb, nn, integer=False):
     return bins, g, h, node
 
 
-def _decisions_tie_aware(torch, ref, hist_plain, hist_kernel, got, kw):
+def _exact_hist(torch, bins, g, h, node, nn, nb):
+    """The plain path's scatter with float64 sums, rounded to float32 once.
+
+    The skewed cells put ~720,000 rows in one cell, where the plain path's
+    float32 atomics drift from the exact sum by more than HIST_TOL (their
+    order changes from run to run, and each add rounds at the running sum's
+    magnitude), so those cells hold the kernel to this sum instead, at the
+    same tolerance; the plain path's own error is printed beside it."""
+    r, f = bins.shape
+    flat = ((node.long()[:, None] * f + torch.arange(f, device=bins.device)[None, :]) * nb
+            + bins.long()).reshape(-1)
+    gh = torch.stack([g, h], dim=1).double()[:, None, :].expand(r, f, 2).reshape(-1, 2)
+    out = torch.zeros(((nn + 1) * f * nb, 2), dtype=torch.float64, device=bins.device)
+    out.index_add_(0, flat, gh)          # the spare node takes the pad rows
+    return out[: nn * f * nb].reshape(nn, f, nb, 2).float()
+
+
+def _decisions_tie_aware(torch, ref, hist_plain, hist_kernel, got, kw, exact=False):
     """Split decisions, held two ways (``kw``: the split_gains_ref arguments).
 
     1. The scan itself: on the kernel's own histogram, the kernel's
@@ -114,8 +140,15 @@ def _decisions_tie_aware(torch, ref, hist_plain, hist_kernel, got, kw):
        only a tie under that node's noise may flip. A candidate legal in
        one table and masked in the other (a child hessian within rounding
        of ``min_child_weight``) is counted as a legality flip, not held.
+    ``exact``: both gain tables in float64 (the skewed cells). There a split
+    with little mass on its right takes hr = ht - hl of two sums ~100x
+    larger, so a float32 gain table moves with the order of its cumsum by
+    more than GAIN_RTOL (torch.cumsum's order against a sequential one does
+    too); in float64 it does not, and the kernel is held to the exact table.
     Returns (largest plain-path gain gap, largest tolerance, legality flips)."""
     n = hist_plain.shape[0]
+    if exact:
+        hist_plain, hist_kernel = hist_plain.double(), hist_kernel.double()
     g_plain = ref.split_gains_ref(hist_plain, **kw).reshape(n, -1)
     g_kern = ref.split_gains_ref(hist_kernel, **kw).reshape(n, -1)
     _, bg, bf, bs = got
@@ -143,73 +176,93 @@ def _decisions_tie_aware(torch, ref, hist_plain, hist_kernel, got, kw):
     return worst, widest, flips
 
 
-def phase_kernels(torch, out: dict) -> None:
+def _level_cell(torch, gen, r, f, nb, nn, skew):
+    """One phase-2 cell: the level kernel (direct, without the histogram,
+    masked, and in subtraction mode) and the histogram kernel against the
+    plain path at R = r, F = f, B = nb, N = nn, with their times."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.histogram import fused_level_split_cuda, histogram_cuda
+
+    lam, mcw = 1.0, 1.0
+    bins, g, h, node = _level_inputs(torch, gen, r, f, nb, nn, skew=skew)
+    kw = dict(lam=lam, min_child_weight=mcw, n_bins=nb)
+    scatter = ((lambda *a: _exact_hist(torch, *a)) if skew
+               else ops._histogram_scatter)
+    plain = scatter(bins, g, h, node, nn, nb)
+    plain_err = ""
+    if skew:
+        drift = (ops._histogram_scatter(bins, g, h, node, nn, nb) - plain).abs().max().item()
+        plain_err = f" (against float64 sums; the float32 plain path is off them by {drift:.3g})"
+    got = fused_level_split_cuda(bins, g, h, node, n_nodes=nn, n_bins=nb,
+                                 lam=lam, min_child_weight=mcw)
+    torch.cuda.synchronize()
+    err = (got[0] - plain).abs().max().item()
+    _check(torch.allclose(got[0], plain, **HIST_TOL),
+           f"hist B={nb} N={nn}{' skewed' if skew else ''}: {err}")
+    ties = [_decisions_tie_aware(torch, ref, plain, got[0], got, kw, exact=skew)]
+    again = fused_level_split_cuda(bins, g, h, node, n_nodes=nn, n_bins=nb,
+                                   lam=lam, min_child_weight=mcw)
+    _check(all(torch.equal(a, b) for a, b in zip(got, again)),
+           "two launches differ")
+    slim = fused_level_split_cuda(bins, g, h, node, n_nodes=nn, n_bins=nb,
+                                  lam=lam, min_child_weight=mcw,
+                                  return_hist=False)
+    _check(slim[0] is None and all(torch.equal(a, b) for a, b in zip(got[1:], slim[1:])),
+           "return_hist=False changed the decisions")
+    # a feature mask and bin_limit < B
+    mask = torch.arange(f, device="cuda") % 3 == 0
+    mkw = dict(kw, bin_limit=nb // 2, feat_mask=mask)
+    masked = fused_level_split_cuda(bins, g, h, node, n_nodes=nn, n_bins=nb,
+                                    lam=lam, min_child_weight=mcw,
+                                    bin_limit=nb // 2, feat_mask=mask)
+    ties.append(_decisions_tie_aware(torch, ref, plain, got[0], masked, mkw, exact=skew))
+    real = torch.isfinite(masked[1])
+    _check(bool(mask[masked[2][real].long()].all()
+                and (masked[3][real] < nb // 2 - 1).all()), "mask or bin_limit ignored")
+    sub_ms = None
+    if nn > 1:
+        parent = scatter(bins, g, h, node // 2, nn // 2, nb)
+        sub = ops.level_split(bins, g, h, node, n_nodes=nn, n_bins=nb, lam=lam,
+                              min_child_weight=mcw, parent_hist=parent)
+        _check(torch.allclose(sub[0], plain, **HIST_TOL), "subtraction hist")
+        ties.append(_decisions_tie_aware(torch, ref, plain, sub[0], sub, kw, exact=skew))
+        sub_ms = _time_ms(torch, lambda: ops.level_split(
+            bins, g, h, node, n_nodes=nn, n_bins=nb, lam=lam,
+            min_child_weight=mcw, parent_hist=parent))
+    ms = _time_ms(torch, lambda: fused_level_split_cuda(
+        bins, g, h, node, n_nodes=nn, n_bins=nb, lam=lam, min_child_weight=mcw))
+    plain_ms = _time_ms(torch, lambda: ref.split_scan_ref(
+        ops._histogram_scatter(bins, g, h, node, nn, nb), **kw))
+    hist_ms = _time_ms(torch, lambda: histogram_cuda(
+        bins, g, h, node, n_nodes=nn, n_bins=nb))
+    gap, gap_tol = (max(t[i] for t in ties) for i in (0, 1))
+    flips = sum(t[2] for t in ties)
+    row = dict(B=nb, N=nn, skew=skew, level_ms=ms, subtract_ms=sub_ms, hist_ms=hist_ms,
+               plain_ms=plain_ms, max_abs_err=err, gain_gap=gap, gain_tol=gap_tol,
+               legality_flips=flips)
+    print(f"  B={nb:3d} N={nn:2d}{' skewed' if skew else ''}: level {ms:.3f} ms, subtraction "
+          f"{'-' if sub_ms is None else f'{sub_ms:.3f}'} ms, histogram "
+          f"{hist_ms:.3f} ms, plain {plain_ms:.3f} ms, max|err| {err:.3g}{plain_err}, "
+          f"gain gap {gap:.3g} (tol {gap_tol:.3g}, legality flips {flips})",
+          flush=True)
+    return row
+
+
+def phase_kernels(torch, out: dict) -> None:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.histogram import histogram_cuda
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     r, f = R_KERNEL, F_KERNEL
     lam, mcw = 1.0, 1.0
     rows = []
-    for nb in (32, 64, 128, 256):
-        for nn in (1, 8, 32):
-            bins, g, h, node = _level_inputs(torch, gen, r, f, nb, nn)
-            kw = dict(lam=lam, min_child_weight=mcw, n_bins=nb)
-            plain = ops._histogram_scatter(bins, g, h, node, nn, nb)
-            got = fused_level_split_cuda(bins, g, h, node, n_nodes=nn, n_bins=nb,
-                                         lam=lam, min_child_weight=mcw)
-            torch.cuda.synchronize()
-            err = (got[0] - plain).abs().max().item()
-            _check(torch.allclose(got[0], plain, **HIST_TOL), f"hist B={nb} N={nn}: {err}")
-            ties = [_decisions_tie_aware(torch, ref, plain, got[0], got, kw)]
-            again = fused_level_split_cuda(bins, g, h, node, n_nodes=nn, n_bins=nb,
-                                           lam=lam, min_child_weight=mcw)
-            _check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                   "two launches differ")
-            slim = fused_level_split_cuda(bins, g, h, node, n_nodes=nn, n_bins=nb,
-                                          lam=lam, min_child_weight=mcw,
-                                          return_hist=False)
-            _check(slim[0] is None and all(torch.equal(a, b) for a, b in zip(got[1:], slim[1:])),
-                   "return_hist=False changed the decisions")
-            # a feature mask and bin_limit < B
-            mask = torch.arange(f, device="cuda") % 3 == 0
-            mkw = dict(kw, bin_limit=nb // 2, feat_mask=mask)
-            masked = fused_level_split_cuda(bins, g, h, node, n_nodes=nn, n_bins=nb,
-                                            lam=lam, min_child_weight=mcw,
-                                            bin_limit=nb // 2, feat_mask=mask)
-            ties.append(_decisions_tie_aware(torch, ref, plain, got[0], masked, mkw))
-            real = torch.isfinite(masked[1])
-            _check(bool(mask[masked[2][real].long()].all()
-                        and (masked[3][real] < nb // 2 - 1).all()), "mask or bin_limit ignored")
-            sub_ms = None
-            if nn > 1:
-                parent = ops._histogram_scatter(bins, g, h, node // 2, nn // 2, nb)
-                sub = ops.level_split(bins, g, h, node, n_nodes=nn, n_bins=nb, lam=lam,
-                                      min_child_weight=mcw, parent_hist=parent)
-                _check(torch.allclose(sub[0], plain, **HIST_TOL), "subtraction hist")
-                ties.append(_decisions_tie_aware(torch, ref, plain, sub[0], sub, kw))
-                sub_ms = _time_ms(torch, lambda: ops.level_split(
-                    bins, g, h, node, n_nodes=nn, n_bins=nb, lam=lam,
-                    min_child_weight=mcw, parent_hist=parent))
-            ms = _time_ms(torch, lambda: fused_level_split_cuda(
-                bins, g, h, node, n_nodes=nn, n_bins=nb, lam=lam, min_child_weight=mcw))
-            plain_ms = _time_ms(torch, lambda: ref.split_scan_ref(
-                ops._histogram_scatter(bins, g, h, node, nn, nb), **kw))
-            hist_ms = _time_ms(torch, lambda: histogram_cuda(
-                bins, g, h, node, n_nodes=nn, n_bins=nb))
-            gap, gap_tol = (max(t[i] for t in ties) for i in (0, 1))
-            flips = sum(t[2] for t in ties)
-            rows.append(dict(B=nb, N=nn, level_ms=ms, subtract_ms=sub_ms,
-                             hist_ms=hist_ms, plain_ms=plain_ms, max_abs_err=err,
-                             gain_gap=gap, gain_tol=gap_tol, legality_flips=flips))
-            print(f"  B={nb:3d} N={nn:2d}: level {ms:.3f} ms, subtraction "
-                  f"{'-' if sub_ms is None else f'{sub_ms:.3f}'} ms, histogram "
-                  f"{hist_ms:.3f} ms, plain {plain_ms:.3f} ms, max|err| {err:.3g}, "
-                  f"gain gap {gap:.3g} (tol {gap_tol:.3g}, legality flips {flips})",
-                  flush=True)
+    cells = [(nb, nn, False) for nb in (32, 64, 128, 256) for nn in (1, 8, 32)]
+    cells += [(nb, nn, True) for nb in (64, 256) for nn in (1, 8)]
+    for nb, nn, skew in cells:
+        rows.append(_level_cell(torch, gen, r, f, nb, nn, skew))
     # integer-valued grad/hess: every sum is exact, so bit-equal in any order
-    for nb, nn in ((64, 1), (256, 32)):
-        bins, g, h, node = _level_inputs(torch, gen, r, f, nb, nn, integer=True)
+    for nb, nn, skew in ((64, 1, False), (256, 32, False), (256, 8, True)):
+        bins, g, h, node = _level_inputs(torch, gen, r, f, nb, nn, integer=True, skew=skew)
         plain = ops._histogram_scatter(bins, g, h, node, nn, nb)
         _check(torch.equal(histogram_cuda(bins, g, h, node, n_nodes=nn, n_bins=nb), plain),
                "integer histogram not bit-equal")
@@ -227,7 +280,7 @@ def phase_kernels(torch, out: dict) -> None:
 
     # the numbers of the kernels line: the root level of the default config
     # (B = 64) for level_split, the leaf sums of a depth-6 tree for histogram
-    b64 = next(x for x in rows if x["B"] == 64 and x["N"] == 1)
+    b64 = next(x for x in rows if x["B"] == 64 and x["N"] == 1 and not x["skew"])
     n_bytes = r * f * 4 + r * 12 + f * 4 + 1 * f * 64 * 8 + 12
     bound, by = _bound_ms(n_bytes, 2 * r * f + 10 * f * 64)
     out["level_split"] = dict(ms=b64["level_ms"], plain_ms=b64["plain_ms"],
@@ -248,6 +301,10 @@ def phase_kernels(torch, out: dict) -> None:
         plain_ms=_time_ms(torch, lambda: ops._histogram_scatter(bins, g, h, node, n_leaves, 1)),
         max_abs_err=(hk - hp).abs().max().item(), bound_ms=bound, bound_by=by,
         library_ms=lib_ms)
+    leaf = out["histogram"]
+    print(f"  leaf sums F=1 B=1 N={n_leaves}: histogram {leaf['ms']:.3f} ms, plain "
+          f"{leaf['plain_ms']:.3f} ms, index_add_ {lib_ms:.3f} ms, bound {bound:.4f} ms ({by}), "
+          f"max|err| {leaf['max_abs_err']:.3g}", flush=True)
     out["phase2_rows"] = rows
 
 
@@ -464,6 +521,12 @@ def _attention_case(torch, gen, label, b, hq, hkv, tq, tk, d, dtype, *, window=N
         err, tol = _held(torch, f"attention {label}", got, want, **ATTN_F32_TOL), "rtol 1e-4"
     else:
         err, tol = _bf16_held(torch, f"attention {label}", got, want)
+        # reported, not held: the plain version with P rounded to bf16 as a
+        # single tensor-core operand would round it
+        want_in = ref.attention_ref(q, k, v, matmul_dtype="input", **kw)
+        tol += (f"; against matmul_dtype='input' {float((got.float() - want_in.float()).abs().max()):.3g}"
+                f", which is off the float32-P plain version by "
+                f"{float((want_in.float() - want.float()).abs().max()):.3g}")
     _check(torch.equal(got, flash_attention_cuda(q, k, v, **kw)), f"{label}: two launches differ")
     ms = _time_ms(torch, lambda: flash_attention_cuda(q, k, v, **kw))
     plain_ms = _time_ms(torch, lambda: ref.attention_ref(q, k, v, **kw), reps=3)
@@ -786,6 +849,8 @@ def main() -> int:
     print(f"  kernels built in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'})",
           flush=True)
+    print("  registers per thread / local (spill) bytes per thread: " + "; ".join(
+        f"{name} {regs}/{local}" for name, regs, local in _build.kernel_info()), flush=True)
     out: dict = {}
     if 2 in phases:
         print("[2] kernels against their plain versions", flush=True)

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
@@ -21,7 +22,7 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["load", "BUILD_DIR", "CSRC"]
+__all__ = ["load", "kernel_info", "BUILD_DIR", "CSRC"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -32,7 +33,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "repro_error_string": ([_I], ctypes.c_char_p),
     "repro_smem_optin": ([_I], _I),
-    "repro_accumulate_smem": ([_I, _I], ctypes.c_longlong),
+    "repro_accumulate_warps": ([_I] * 4 + [ctypes.POINTER(_I)], _I),
     "repro_histogram": ([_P] * 6 + [_I] * 7 + [_P], _I),
     "repro_level_split": ([_P] * 7 + [_F, _F, _I] + [_P] * 5 + [_I] * 8 + [_P], _I),
     "repro_flash_max_head_dim": ([], _I),
@@ -41,6 +42,11 @@ _SIGNATURES = {
     "repro_rwkv6_smem": ([_I, _I], ctypes.c_longlong),
     "repro_rwkv6": ([_P] * 8 + [_I] * 6 + [_P], _I),
 }
+#: one function per source: (i, &name, &registers, &local bytes) -> 0 | -1 | error
+_KERNEL_INFO = ("repro_histogram_kernel_info", "repro_flash_kernel_info",
+                "repro_rglru_kernel_info", "repro_rwkv6_kernel_info")
+_SIGNATURES.update({name: ([_I, ctypes.POINTER(ctypes.c_char_p)] + [ctypes.POINTER(_I)] * 2, _I)
+                    for name in _KERNEL_INFO})
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -123,3 +129,23 @@ def load() -> ctypes.CDLL:
                 fn.argtypes, fn.restype = args, res
             _lib = lib
     return _lib
+
+
+def kernel_info() -> list[tuple[str, int, int]]:
+    """``(name, registers per thread, local bytes per thread)`` of every
+    kernel in the library, from ``cudaFuncGetAttributes`` on the current
+    device. Local bytes above 0 mean the kernel spills registers."""
+    lib = load()
+    out = []
+    for fn_name in _KERNEL_INFO:
+        fn = getattr(lib, fn_name)
+        for i in itertools.count():
+            name, regs, local = ctypes.c_char_p(), _I(), _I()
+            err = fn(i, ctypes.byref(name), ctypes.byref(regs), ctypes.byref(local))
+            if err == -1:
+                break
+            if err:
+                raise RuntimeError(f"{fn_name}({i}): CUDA error {err} "
+                                   f"({lib.repro_error_string(err).decode()})")
+            out.append((name.value.decode(), regs.value, local.value))
+    return out

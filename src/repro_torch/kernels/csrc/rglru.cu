@@ -90,4 +90,13 @@ int repro_rglru(const void* x, const void* ig, const void* rg,
   }
 }
 
+// The i-th kernel of this file: its name, registers per thread and local
+// (spill) bytes per thread. Returns 0, -1 past the last kernel, or the CUDA error.
+int repro_rglru_kernel_info(int i, const char** name, int* regs, int* local_bytes) {
+  static const repro::KernelRef table[] = {
+      {"rglru_fwd<float>", reinterpret_cast<const void*>(rglru_fwd<float>)},
+      {"rglru_fwd<bf16>", reinterpret_cast<const void*>(rglru_fwd<__nv_bfloat16>)}};
+  return repro::kernel_info(table, i, name, regs, local_bytes);
+}
+
 }  // extern "C"

@@ -141,4 +141,13 @@ int repro_rwkv6(const void* r, const void* k, const void* v, const float* w,
   }
 }
 
+// The i-th kernel of this file: its name, registers per thread and local
+// (spill) bytes per thread. Returns 0, -1 past the last kernel, or the CUDA error.
+int repro_rwkv6_kernel_info(int i, const char** name, int* regs, int* local_bytes) {
+  static const repro::KernelRef table[] = {
+      {"rwkv6_fwd<float>", reinterpret_cast<const void*>(rwkv6_fwd<float>)},
+      {"rwkv6_fwd<bf16>", reinterpret_cast<const void*>(rwkv6_fwd<__nv_bfloat16>)}};
+  return repro::kernel_info(table, i, name, regs, local_bytes);
+}
+
 }  // extern "C"

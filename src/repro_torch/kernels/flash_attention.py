@@ -1,9 +1,10 @@
 """Flash attention as a hand-written CUDA kernel for Hopper.
 
 The port of the JAX package's ``kernels/flash_attention.py``
-(``flash_attention``). The kernel is ``csrc/flash_attention.cu`` (its
-header says what bounds it and how the work is laid out); this module holds
-its ctypes wrapper. Oracle: :func:`repro_torch.kernels.ref.attention_ref`.
+(``flash_attention``). The kernels, one for bfloat16 on the tensor cores
+and one for float32, are in ``csrc/flash_attention.cu`` (its header says
+what bounds them and how the work is laid out); this module holds their
+ctypes wrapper. Oracle: :func:`repro_torch.kernels.ref.attention_ref`.
 Dispatch: ``ops.attention``.
 """
 from __future__ import annotations
@@ -21,10 +22,17 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None,
     """Online-softmax attention on the card; see ``ref.attention_ref``.
 
     q: (B, Hq, Tq, D); k, v: (B, Hkv, Tk, D), contiguous CUDA tensors of one
-    dtype (float32, bfloat16 or float16), Hq a multiple of Hkv, D ≤ 256.
-    Any Tq and Tk: the queries sit at the last Tq of the Tk positions. A row
-    that sees no key gives 0 (the oracle gives NaN there). Statistics and
-    accumulator are float32; the result has q's dtype."""
+    dtype, float32 or bfloat16, Hq a multiple of Hkv, D ≤ 256. Any Tq and
+    Tk: the queries sit at the last Tq of the Tk positions. A row that sees
+    no key gives 0 (the oracle gives NaN there). Statistics and accumulator
+    are float32; the result has q's dtype. The dtype picks the kernel, and
+    both count as one launch here:
+
+    * bfloat16: ``flash_fwd_bf16``, whose products run on the tensor cores
+      (bf16 × bf16 into float32); the probabilities P enter the P·V product
+      as a pair of bf16 terms, P_hi + P_lo, which keeps about 16 bits of P;
+    * float32: ``flash_fwd<float>``, float32 products on the CUDA cores.
+    """
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("q, k and v must be (batch, heads, seq, head_dim)")
     b, hq, tq, d = q.shape

@@ -22,6 +22,8 @@ CPU. Oracles: :func:`repro_torch.kernels.ref.histogram_ref` /
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build, _launch
@@ -34,8 +36,13 @@ _PARTIAL_BYTES_CAP = 64 << 20
 #: fewest rows worth a row chunk of their own
 _MIN_CHUNK_ROWS = 1024
 _MAX_GRID_DIM = 65535
+#: cost of a row that a node tile skips, against one it adds: a skipped row
+#: costs its node's 4 bytes and a lane's test, an added one its bins' copy
+#: and the adds
+_SKIP_COST = 0.05
 
 _device_info: dict[int, tuple[int, int]] = {}
+_tilings: dict[tuple, tuple[int, int]] = {}
 _NAMES = ("histogram", "level_split")
 
 
@@ -49,35 +56,59 @@ def reset_launch_counts() -> None:
     _launch.reset_launch_counts(_NAMES)
 
 
-def _sm_count_and_smem(device: torch.device) -> tuple[int, int]:
-    idx = device.index if device.index is not None else torch.cuda.current_device()
+def _sm_count_and_smem(idx: int) -> tuple[int, int]:
     if idx not in _device_info:
         sms = torch.cuda.get_device_properties(idx).multi_processor_count
         _device_info[idx] = (sms, int(_build.load().repro_smem_optin(idx)))
     return _device_info[idx]
 
 
+def _node_tiling(idx: int, n_features: int, n_bins: int, n_acc: int) -> tuple[int, int]:
+    """``(nodes_per_tile, features_per_block)`` of pass 1 for ``n_acc`` nodes.
+
+    A pass-1 block fills one SM's shared memory with private histograms,
+    one per warp, of B·8 bytes per node and feature (up to 32 features, or
+    16 where that doubles the warps), so the more nodes a tile holds, the
+    fewer warps run. Each tile reads the node array again (and the bins of
+    its own rows only), while each added warp hides more of the rows'
+    copies and shared-memory round trips. The tiling taken minimises
+    (1 + _SKIP_COST · tiles) / warps."""
+    key = (idx, n_features, n_bins, n_acc)
+    if key not in _tilings:
+        lib = _build.load()
+        _, smem_optin = _sm_count_and_smem(idx)
+        best = None
+        for npt in sorted({-(-n_acc // t) for t in range(1, n_acc + 1)}, reverse=True):
+            group = ctypes.c_int()
+            warps = int(lib.repro_accumulate_warps(n_features, n_bins, npt, smem_optin,
+                                                   ctypes.byref(group)))
+            if warps < 1:
+                continue
+            cost = (1 + _SKIP_COST * -(-n_acc // npt)) / warps
+            if best is None or cost < best[0]:
+                best = (cost, npt, group.value)
+        if best is None:
+            raise ValueError(f"n_bins={n_bins} does not fit one node's histograms "
+                             f"in {smem_optin} bytes of shared memory")
+        _tilings[key] = best[1:]
+    return _tilings[key]
+
+
 def _plan(device, n_rows: int, n_features: int, n_bins: int, n_acc: int):
     """Launch shape of pass 1: ``(n_chunks, chunk_rows, nodes_per_tile)``.
 
-    Nodes are tiled so one tile's shared histogram fits the block's shared
-    memory (B=256 at depth 8 needs 128·256·8 bytes, more than 227 KB). Row
-    chunks are chosen for about 32 resident warps per SM, but never so many
-    that the partials pass the cap, nor chunks under ``_MIN_CHUNK_ROWS``."""
-    lib = _build.load()
-    sms, smem_optin = _sm_count_and_smem(device)
-    staging = int(lib.repro_accumulate_smem(n_bins, 0))
-    per_node = int(lib.repro_accumulate_smem(n_bins, 1)) - staging
-    if staging + per_node > smem_optin:
-        raise ValueError(f"n_bins={n_bins} does not fit one node's histogram "
-                         f"in {smem_optin} bytes of shared memory")
-    nodes_per_tile = min(n_acc, (smem_optin - staging) // per_node)
-    n_tiles = -(-n_acc // nodes_per_tile)
+    Nodes are tiled by :func:`_node_tiling`. A block fills one SM, so row
+    chunks make one block per SM over the (node tile, feature group) pairs,
+    but never so many that the partials pass the cap, nor chunks under
+    ``_MIN_CHUNK_ROWS``."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    sms, _ = _sm_count_and_smem(idx)
+    nodes_per_tile, group = _node_tiling(idx, n_features, n_bins, n_acc)
     if n_rows == 0:
         return 0, 0, nodes_per_tile
-    warps = min(8, -(-n_bins // 32))
-    target_blocks = sms * max(4, 32 // warps)
-    n_chunks = -(-target_blocks // (n_features * n_tiles))
+    n_tiles = -(-n_acc // nodes_per_tile)
+    n_groups = -(-n_features // group)
+    n_chunks = -(-sms // (n_groups * n_tiles))
     n_chunks = min(n_chunks, -(-n_rows // _MIN_CHUNK_ROWS), _MAX_GRID_DIM,
                    max(1, _PARTIAL_BYTES_CAP // (n_acc * n_features * n_bins * 8)))
     n_chunks = max(1, n_chunks)

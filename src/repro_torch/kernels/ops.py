@@ -37,10 +37,14 @@ def _use_kernel(force, t: torch.Tensor) -> bool:
 def attention(q, k, v, *, causal=True, window=None, scale=None,
               logit_softcap=None, force=None, matmul_dtype="float32"):
     """Multi-head attention (GQA via head-count ratio). See
-    ``attention_ref``. The kernel computes its products in float32 whatever
-    ``matmul_dtype`` says, as the TPU kernel does. The JAX package's
-    ``block_q``/``block_k`` tiling arguments have no counterpart here: the
-    kernel's tiles are fixed and it takes any sequence length."""
+    ``attention_ref``. On the card ``matmul_dtype`` is not read: for bf16
+    inputs the kernel multiplies on the tensor cores, bf16 × bf16 into
+    float32 (exact products), and takes P into the P·V product as two bf16
+    terms, P_hi + P_lo, about 16 bits of P where ``matmul_dtype="input"``
+    would round it to 8; for float32 inputs it multiplies in float32. The
+    JAX package's ``block_q``/``block_k`` tiling arguments have no
+    counterpart here: the kernel's tiles are fixed and it takes any
+    sequence length."""
     if _use_kernel(force, q):
         from repro_torch.kernels.flash_attention import flash_attention_cuda
 

@@ -23,7 +23,13 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 GAIN_RTOL = 1e-4
 LEVEL_GRID = [(200, 5, 16, 1), (500, 7, 64, 4), (400, 12, 256, 4), (300, 9, 16, 32),
               (600, 3, 64, 32), (250, 6, 256, 32), (1, 4, 8, 2), (3000, 28, 256, 16),
-              (5000, 3, 256, 256)]      # 256 nodes × 256 bins: two node tiles
+              (5000, 3, 256, 256),      # 256 nodes × 256 bins: many node tiles
+              (1003, 28, 64, 8),        # R not a multiple of 32 or of a staged tile
+              (20001, 8, 256, 64)]      # B=256 at 64 nodes: several node tiles
+# bins a quantized real feature gives: 90 % of the rows in bin 0, or every
+# row in one bin, where neighbouring rows most often share a cell
+SKEW_GRID = [("skewed", 5003, 28, 64, 1), ("skewed", 4001, 7, 256, 8),
+             ("one_bin", 3001, 12, 32, 4), ("one_bin", 1000, 5, 256, 1)]
 HIST_GRID = [(100, 5, 8, 1), (500, 7, 16, 4), (1000, 3, 64, 8), (50, 19, 24, 3),
              (128, 13, 48, 5), (37, 9, 8, 2), (20000, 1, 1, 64)]
 
@@ -35,9 +41,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _fixture(seed, r, f, nb, nn, device, integer=False):
+def _fixture(seed, r, f, nb, nn, device, integer=False, skew=None):
     rng = np.random.default_rng(seed)
     bins = rng.integers(0, nb, size=(r, f)).astype(np.int32)
+    if skew == "skewed":
+        bins[rng.random((r, f)) < 0.9] = 0
+    elif skew == "one_bin":
+        bins[:] = nb // 2
     if integer:
         g = rng.integers(-8, 9, size=r).astype(np.float32)
         h = rng.integers(1, 5, size=r).astype(np.float32)
@@ -98,6 +108,37 @@ def test_cuda_integer_stats_bit_equal(cuda, r, f, nb, nn):
         # exact sums, same IEEE gain formula: only the cumsum order differs,
         # and on integers it is exact too
         assert torch.equal(got[2].cpu(), plain[2]) and torch.equal(got[3].cpu(), plain[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,r,f,nb,nn", SKEW_GRID)
+def test_cuda_level_split_skewed_bins(cuda, kind, r, f, nb, nn):
+    t = _fixture(5, r, f, nb, nn, cuda, skew=kind)
+    kw = dict(n_nodes=nn, n_bins=nb, lam=1.0, min_child_weight=1.0)
+    plain = ops._histogram_scatter(*t, nn, nb)
+    got = ops.level_split(*t, force="kernel", **kw)
+    torch.testing.assert_close(got[0], plain, atol=1e-4, rtol=1e-5)
+    _assert_tie_aware(plain, got, dict(lam=1.0, min_child_weight=1.0, n_bins=nb))
+    assert all(torch.equal(a, b) for a, b in zip(got, ops.level_split(*t, force="kernel", **kw)))
+    torch.testing.assert_close(ops.histogram(*t, n_nodes=nn, n_bins=nb), plain,
+                               atol=1e-4, rtol=1e-5)
+    if nn > 1:
+        sub = ops.level_split(*t, parent_hist=_parent(t, nn, nb), **kw)
+        torch.testing.assert_close(sub[0], plain, atol=1e-4, rtol=1e-5)
+        _assert_tie_aware(plain, sub, dict(lam=1.0, min_child_weight=1.0, n_bins=nb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,r,f,nb,nn", SKEW_GRID + [(None, 20001, 8, 256, 64)])
+def test_cuda_integer_stats_bit_equal_skewed_and_tiled(cuda, kind, r, f, nb, nn):
+    t = _fixture(6, r, f, nb, nn, cuda, integer=True, skew=kind)
+    kw = dict(n_nodes=nn, n_bins=nb, lam=1.0, min_child_weight=1.0)
+    plain = ops._histogram_scatter(*[x.cpu() for x in t], nn, nb)
+    assert torch.equal(ops.histogram(*t, n_nodes=nn, n_bins=nb).cpu(), plain)
+    assert torch.equal(ops.level_split(*t, **kw)[0].cpu(), plain)
+    if nn > 1:
+        sub = ops.level_split(*t, parent_hist=_parent(t, nn, nb), **kw)
+        assert torch.equal(sub[0].cpu(), plain)
 
 
 @pytest.mark.cuda
@@ -189,6 +230,51 @@ def test_cuda_flash_attention_vs_plain(cuda, b, hq, hkv, tq, tk, d, causal, wind
     else:
         _bf16_close(got, want)
     assert torch.equal(got, ops.attention(q, k, v, force="kernel", **kw).masked_fill(dead, 0))
+
+
+def _bf16_row_close(got, want):
+    """One bf16 ulp per row, as chip_smoke.py holds the serving shapes:
+    |err| <= 2**-8 * (max |want| over the row + |want|)."""
+    want = want.float()
+    row_max = want.abs().amax(dim=-1, keepdim=True)
+    err = (got.float() - want).abs()
+    assert bool((err <= 2.0 ** -8 * (row_max + want.abs())).all()), float(err.max())
+
+
+# the bf16 tensor-core kernel: every head_dim tile width, Tq from one query
+# to several query tiles (Tq < Tk, queries at the last Tq positions), MQA and
+# GQA, a window, a softcap and both
+TC_VARIANTS = {"mqa_window": (4, 1, 33, None), "gqa_softcap": (8, 2, None, 30.0),
+               "mqa_window_softcap": (4, 1, 200, 20.0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(TC_VARIANTS))
+@pytest.mark.parametrize("tq", [1, 15, 64, 1000])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_cuda_flash_attention_bf16_tensor_cores(cuda, d, tq, variant):
+    hq, hkv, window, cap = TC_VARIANTS[variant]
+    tk = tq + 29
+    q, k, v = _lm(18, (2, hq, tq, d), (2, hkv, tk, d), (2, hkv, tk, d), device=cuda,
+                  dtype=torch.bfloat16)
+    kw = dict(causal=True, window=window, logit_softcap=cap)
+    got = ops.attention(q, k, v, force="kernel", **kw)
+    _bf16_row_close(got, ref.attention_ref(q, k, v, **kw))
+    assert torch.equal(got, ops.attention(q, k, v, force="kernel", **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_cuda_flash_attention_bf16_rows_without_keys(cuda, d):
+    q, k, v = _lm(19, (1, 4, 150, d), (1, 1, 40, d), (1, 1, 40, d), device=cuda,
+                  dtype=torch.bfloat16)
+    got = ops.attention(q, k, v, force="kernel")
+    want = ref.attention_ref(q, k, v)
+    dead = torch.isnan(want).all(dim=-1)     # the first 110 queries see no key
+    assert int(dead[0, 0].sum()) == 110
+    assert bool((got[dead] == 0).all())
+    _bf16_row_close(got[~dead], want[~dead])
+    assert torch.equal(got, ops.attention(q, k, v, force="kernel"))
 
 
 @pytest.mark.cuda
