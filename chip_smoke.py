@@ -26,6 +26,8 @@ or any phase fails. Phases:
 6. the LM kernels (flash attention, RG-LRU, RWKV-6) against their plain
    versions at the serving path's shapes, with stated tolerances, two
    launches bit-identical, kernel / plain / library times beside the bound;
+   for the recurrences also their device time from a CUDA graph replay,
+   which at T=1 separates the card from the host's launch cost;
 7. RecurrentGemma-9B served at full width and depth (38 layers) on seeded
    random weights: one wave of 4 requests (prompts of 4096, 3000, 2048 and
    1000 tokens, 32 new tokens each) through ``ServeEngine``, with the
@@ -83,6 +85,37 @@ def _time_ms(torch, fn, reps: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _self_device_us(evt) -> float:
+    t = getattr(evt, "self_device_time_total", None)
+    return t if t is not None else getattr(evt, "self_cuda_time_total", 0.0)
+
+
+def _device_ms(torch, fn, reps: int = 10, replays: int = 5) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls captured in a CUDA
+    graph, the graph replayed ``replays`` times between CUDA events. The
+    host's cost per call (Python, ctypes, the launch) is left out, which
+    CUDA events around back-to-back calls also see; what is timed is the
+    kernels and the graph's own gaps between them."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * replays)
+    del graph
+    return ms
 
 
 def _check(cond: bool, what: str) -> None:
@@ -416,9 +449,7 @@ def phase_full_size(torch, out: dict) -> None:
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue                     # host ops: their kernels count below
-        t = getattr(evt, "self_device_time_total", None)
-        if t is None:
-            t = getattr(evt, "self_cuda_time_total", 0.0)
+        t = _self_device_us(evt)
         dev_us += t
         if any(n in evt.key for n in names):
             kern_us += t
@@ -568,13 +599,15 @@ def _rglru_case(torch, gen, b, t, d, with_h0):
     y2, h2 = rglru_cuda(x, ig, rg, a, h0)
     _check(torch.equal(y, y2) and torch.equal(h, h2), f"rglru {label}: two launches differ")
     ms = _time_ms(torch, lambda: rglru_cuda(x, ig, rg, a, h0))
+    dev_ms = _device_ms(torch, lambda: rglru_cuda(x, ig, rg, a, h0))
     plain_ms = _time_ms(torch, lambda: ref.rglru_ref(x, ig, rg, a, h0), reps=3)
     n = b * t * d
     n_bytes = 4 * n * 2 + 4 * d + 4 * b * d * (2 if with_h0 else 1)
     bound, by = _bound_ms(n_bytes, RGLRU_OPS_PER_ELEMENT * n)
     print(f"  rglru {label}: y max|err| {err:.3g} ({tol}), "
           f"h_T max|err| {h_err:.3g} (rtol {STATE_TOL:g} of scale), bit-identical reruns, "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by})", flush=True)
+          f"{ms:.4f} ms (CUDA events), device {dev_ms:.4f} ms (CUDA graph replay), "
+          f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by})", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bound, bound_by=by,
                 library_ms=None)
 
@@ -600,6 +633,7 @@ def _rwkv6_case(torch, gen, b, h, t, dk, dv, with_s0):
     y2, s2 = rwkv6_cuda(r, k, v, w, u, s0)
     _check(torch.equal(y, y2) and torch.equal(s, s2), f"rwkv6 {label}: two launches differ")
     ms = _time_ms(torch, lambda: rwkv6_cuda(r, k, v, w, u, s0))
+    dev_ms = _device_ms(torch, lambda: rwkv6_cuda(r, k, v, w, u, s0))
     plain_ms = _time_ms(torch, lambda: ref.rwkv6_ref(r, k, v, w, u, s0), reps=3)
     steps = b * h * t
     n_bytes = (steps * ((2 * dk + dv) * 2 + dk * 4 + dv * 2) + h * dk * 4
@@ -612,7 +646,8 @@ def _rwkv6_case(torch, gen, b, h, t, dk, dv, with_s0):
     bound, by = _bound_ms(n_bytes, n_flops)
     print(f"  rwkv6 {label}: y max|err| {err:.3g} ({tol}), "
           f"S_T max|err| {s_err:.3g} (rtol {STATE_TOL:g} of scale), bit-identical reruns, "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by})", flush=True)
+          f"{ms:.4f} ms (CUDA events), device {dev_ms:.4f} ms (CUDA graph replay), "
+          f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by})", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bound, bound_by=by,
                 library_ms=None)
 
@@ -685,7 +720,7 @@ def _profiled_serve(torch, engine, wave):
     # float32 → bf16 weight cast on every call (PyTorch runs them as
     # elementwise kernels named after direct_copy); "elementwise" the other
     # pointwise ops (norms, rope, activations, the causal conv)
-    kinds = (("flash_attention", ("flash_fwd",)), ("rglru", ("rglru_fwd",)),
+    kinds = (("flash_attention", ("flash_fwd",)), ("rglru", ("rglru_",)),
              ("rwkv6", ("rwkv6_fwd",)),
              ("matmul", ("gemm", "xmma", "cutlass", "cublas", "nvjet")),
              ("copy", ("copy",)), ("elementwise", ("elementwise", "reduce")))
@@ -694,9 +729,7 @@ def _profiled_serve(torch, engine, wave):
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        t = getattr(evt, "self_device_time_total", None)
-        if t is None:
-            t = getattr(evt, "self_cuda_time_total", 0.0)
+        t = _self_device_us(evt)
         kind = next((k for k, keys in kinds if any(x in evt.key.lower() for x in keys)),
                     "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + t

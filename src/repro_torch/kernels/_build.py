@@ -38,7 +38,8 @@ _SIGNATURES = {
     "repro_level_split": ([_P] * 7 + [_F, _F, _I] + [_P] * 5 + [_I] * 8 + [_P], _I),
     "repro_flash_max_head_dim": ([], _I),
     "repro_flash_attention": ([_P] * 4 + [_I] * 7 + [_F, _F, _I, _I, _P], _I),
-    "repro_rglru": ([_P] * 7 + [_I] * 4 + [_F, _P], _I),
+    "repro_rglru_scratch": ([_I] * 3, ctypes.c_longlong),
+    "repro_rglru": ([_P] * 8 + [_I] * 4 + [_F, _P], _I),
     "repro_rwkv6_smem": ([_I, _I], ctypes.c_longlong),
     "repro_rwkv6": ([_P] * 8 + [_I] * 6 + [_P], _I),
 }

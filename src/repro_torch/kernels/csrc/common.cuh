@@ -25,8 +25,12 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// 1 / (1 + e^-x), as jax.nn.sigmoid and torch.sigmoid define it
-__device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
+// 1 / (1 + e^-x), as jax.nn.sigmoid and torch.sigmoid define it, to a few
+// float32 ulps (the exp2 and reciprocal approximations of the SFU); 0 and 1
+// at the extremes
+__device__ __forceinline__ float sigmoidf(float x) {
+  return __fdividef(1.f, 1.f + __expf(-x));
+}
 
 // log(1 + e^x) = max(x, 0) + log1p(e^-|x|), the stable form jax.nn.softplus uses
 __device__ __forceinline__ float softplusf(float x) {

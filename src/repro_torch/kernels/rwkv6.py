@@ -1,9 +1,10 @@
 """The RWKV-6 WKV recurrence as a hand-written CUDA kernel for Hopper.
 
 The port of the JAX package's ``kernels/rwkv6.py`` (``rwkv6_tpu``). The
-kernel is ``csrc/rwkv6.cu`` (its header says what bounds it, and why it
-runs the recurrence in time order without the TPU kernel's −50 clamp on
-the log decay); this module holds its ctypes wrapper. Oracle:
+kernel is ``csrc/rwkv6.cu`` (its header says what bounds it, how the
+state is spread over threads, and why it runs the recurrence in time order
+without the TPU kernel's −50 clamp on the log decay); this module holds
+its ctypes wrapper. Oracle:
 :func:`repro_torch.kernels.ref.rwkv6_ref`. Dispatch: ``ops.rwkv6``.
 """
 from __future__ import annotations
@@ -21,7 +22,8 @@ def rwkv6_cuda(r, k, v, w, u, s0=None):
 
     r, k: (B, H, T, Dk) and v: (B, H, T, Dv), contiguous CUDA tensors of one
     dtype; w: (B, H, T, Dk) float32 pre-activation decay; u: (H, Dk)
-    float32; s0: (B, H, Dk, Dv) float32 or None. Any T ≥ 0, T=1 included.
+    float32; s0: (B, H, Dk, Dv) float32 or None. Any T ≥ 0, T=1 included;
+    Dk ≤ 256, any Dv.
     Returns ``(y, S_T)``: y (B, H, T, Dv) in v's dtype, S_T float32."""
     if r.dim() != 4 or v.dim() != 4:
         raise ValueError("r, k, v and w must be (batch, heads, seq, dim)")
@@ -39,8 +41,9 @@ def rwkv6_cuda(r, k, v, w, u, s0=None):
             raise ValueError(f"{name} must be on {r.device}")
     lib = _build.load()
     idx = r.device.index if r.device.index is not None else torch.cuda.current_device()
-    if dv > 1024 or lib.repro_rwkv6_smem(dk, dv) > lib.repro_smem_optin(idx):
-        raise ValueError(f"a {dk}x{dv} state does not fit one block")
+    smem = lib.repro_rwkv6_smem(dk, dv)
+    if smem < 0 or smem > lib.repro_smem_optin(idx):
+        raise ValueError(f"a {dk}x{dv} state is past the kernel's reach (Dk ≤ 256)")
     y = torch.empty((b, h, t, dv), dtype=v.dtype, device=r.device)
     s_last = torch.empty((b, h, dk, dv), dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):

@@ -342,6 +342,162 @@ def test_cuda_rwkv6_state_chaining(cuda):
     assert torch.equal(torch.cat([y1, y2], 2), y) and torch.equal(s2, s)
 
 
+# The edges of the recurrences' designs (csrc/rglru.cu, csrc/rwkv6.cu): RG-LRU
+# scans T in chunks of 64 steps (each chunk's decay product and local end
+# state, a hand-off of entry states from chunk to chunk, a re-run of each
+# chunk from its entry state); RWKV-6 stages 16 steps at a time, gives a
+# thread 8 rows x 4 columns of the state and splits Dv into column groups
+# (64 columns at Dk=64, 32 at Dk=128). Tolerances as above: the chunked
+# scan forms each chunk's entry state as prod(a) * h + local, another
+# float32 order than the step-by-step oracle.
+RGLRU_CHUNK, RWKV6_STAGE = 64, 16
+
+
+def _rglru_held(x, ig, rg, a, h0, dt):
+    y, h = ops.rglru(x, ig, rg, a, h0, force="kernel")
+    y_r, h_r = ref.rglru_ref(x, ig, rg, a, h0)
+    assert y.dtype == dt and bool(torch.isfinite(y.float()).all() and torch.isfinite(h).all())
+    torch.testing.assert_close(h, h_r, atol=1e-4, rtol=1e-4)
+    if dt == torch.float32:
+        torch.testing.assert_close(y, y_r, atol=1e-4, rtol=1e-4)
+    else:
+        _bf16_close(y, y_r)
+    y2, h2 = ops.rglru(x, ig, rg, a, h0, force="kernel")
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    return y, h
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, RGLRU_CHUNK - 1, RGLRU_CHUNK, RGLRU_CHUNK + 1,
+                               2 * RGLRU_CHUNK - 1, 2 * RGLRU_CHUNK, 2 * RGLRU_CHUNK + 1, 300])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [160, 33])
+def test_cuda_rglru_chunk_edges(cuda, t, dtype, d):
+    """d=160: two channel tiles, the second ragged; d=33: one ragged tile."""
+    dt = getattr(torch, dtype)
+    b = 2
+    x, ig, rg = _lm(20, (b, t, d), (b, t, d), (b, t, d), device=cuda, dtype=dt)
+    a, h0 = _lm(21, (d,), (b, d), device=cuda)
+    for init in (None, h0):
+        _rglru_held(x, ig, rg, a, init, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decay", ["zero", "one", "mixed"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rglru_extreme_decays(cuda, decay, dtype):
+    """a_t near 0 (softplus(10) * sigmoid(10) * 8 ~ 80: a ~ 1e-35) and near 1
+    (softplus(-20) ~ 2e-9: a ~ 1 - 2e-8, the state carried across every
+    chunk), and both side by side per channel."""
+    dt = getattr(torch, dtype)
+    b, t, d = 2, 3 * RGLRU_CHUNK + 17, 256
+    x, ig, rg = _lm(22, (b, t, d), (b, t, d), (b, t, d), device=cuda)
+    a, h0 = _lm(23, (d,), (b, d), device=cuda)
+    zero = torch.full((d,), 10.0, device=cuda)
+    one = torch.full((d,), -20.0, device=cuda)
+    if decay == "zero":
+        a, rg = zero, rg.abs() + 10.0
+    elif decay == "one":
+        a = one
+    else:
+        a = torch.where(torch.arange(d, device=cuda) % 3 == 0, zero,
+                        torch.where(torch.arange(d, device=cuda) % 3 == 1, one, a))
+        rg = torch.where(torch.arange(d, device=cuda) % 3 == 0, rg.abs() + 10.0, rg)
+    _rglru_held(x.to(dt), ig.to(dt), rg.to(dt), a, h0, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [37, 100, RGLRU_CHUNK])
+def test_cuda_rglru_state_across_a_split(cuda, split):
+    """A state carried from one call to the next, the split on or off a
+    chunk boundary: both calls within tolerance of the plain version of the
+    whole sequence (the chunks then start elsewhere, so not bit-equal)."""
+    b, t, d = 2, 300, 128
+    x, ig, rg = _lm(24, (b, t, d), (b, t, d), (b, t, d), device=cuda)
+    a, h0 = _lm(25, (d,), (b, d), device=cuda)
+    y1, h1 = ops.rglru(x[:, :split], ig[:, :split], rg[:, :split], a, h0, force="kernel")
+    y2, h2 = ops.rglru(x[:, split:], ig[:, split:], rg[:, split:], a, h1, force="kernel")
+    y_r, h_r = ref.rglru_ref(x, ig, rg, a, h0)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y_r, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h2, h_r, atol=1e-4, rtol=1e-4)
+
+
+def _rwkv6_held(r, k, v, w, u, s0, dt):
+    y, s = ops.rwkv6(r, k, v, w, u, s0, force="kernel")
+    y_r, s_r = ref.rwkv6_ref(r, k, v, w, u, s0)
+    assert y.dtype == dt and bool(torch.isfinite(y.float()).all() and torch.isfinite(s).all())
+    torch.testing.assert_close(s, s_r, atol=1e-4, rtol=1e-4)
+    if dt == torch.float32:
+        torch.testing.assert_close(y, y_r, atol=1e-4, rtol=1e-4)
+    else:
+        _bf16_close(y, y_r)
+    y2, s2 = ops.rwkv6(r, k, v, w, u, s0, force="kernel")
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+    return y, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, RWKV6_STAGE - 1, RWKV6_STAGE, RWKV6_STAGE + 1,
+                               2 * RWKV6_STAGE - 1, 2 * RWKV6_STAGE + 1, 50])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rwkv6_staging_edges(cuda, t, dtype):
+    dt = getattr(torch, dtype)
+    b, h, dk, dv = 2, 2, 64, 64
+    r, k, v = _lm(26, (b, h, t, dk), (b, h, t, dk), (b, h, t, dv), device=cuda, dtype=dt)
+    w, u, s0 = _lm(27, (b, h, t, dk), (h, dk), (b, h, dk, dv), device=cuda)
+    for init in (None, s0):
+        _rwkv6_held(r, k, v, w, u, init, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decay", ["-8", "+4", "mixed"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rwkv6_extreme_decays(cuda, decay, dtype):
+    """w = -8 (decay exp(-3.4e-4): the state barely fades over the run), w =
+    +4 (decay exp(-54.6) ~ 2e-24: gone in a step), and the two per channel."""
+    dt = getattr(torch, dtype)
+    b, h, t, dk, dv = 2, 2, 3 * RWKV6_STAGE + 5, 64, 64
+    r, k, v = _lm(28, (b, h, t, dk), (b, h, t, dk), (b, h, t, dv), device=cuda, dtype=dt)
+    u, s0 = _lm(29, (h, dk), (b, h, dk, dv), device=cuda)
+    if decay == "mixed":
+        w = torch.where(torch.arange(dk, device=cuda) % 2 == 0, -8.0, 4.0).expand(b, h, t, dk)
+    else:
+        w = torch.full((b, h, t, dk), float(decay), device=cuda)
+    _rwkv6_held(r, k, v, w.contiguous(), u, s0, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dk,dv", [(64, 64), (64, 48), (64, 100), (64, 160), (128, 64),
+                                   (16, 12), (32, 200), (12, 20), (8, 64), (256, 40)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rwkv6_column_groups(cuda, dk, dv, dtype):
+    """One column group (Dv=64 at Dk=64) and several (Dv=100 and 160 at
+    Dk=64, Dv=64 at Dk=128, 200 at Dk=32, 40 at Dk=256), groups that Dv
+    does not fill (48, 100, 12, 20, 200, 40), every lanes-per-column count
+    (Dk=8: 1, 12 and 16: 2, 32: 4, 64: 8, 128: 16, 256: 32) with row slices
+    padded past Dk (12), and rows that are not 16-byte aligned (Dk=12),
+    which load without cp.async."""
+    dt = getattr(torch, dtype)
+    b, h, t = 2, 3, 37
+    r, k, v = _lm(30, (b, h, t, dk), (b, h, t, dk), (b, h, t, dv), device=cuda, dtype=dt)
+    w, u, s0 = _lm(31, (b, h, t, dk), (h, dk), (b, h, dk, dv), device=cuda)
+    _rwkv6_held(r, k, v, w, u, s0, dt)
+
+
+@pytest.mark.cuda
+def test_cuda_rwkv6_state_across_a_split_off_the_staging(cuda):
+    """No step depends on where a staged chunk starts, so a state carried
+    across a split at 37 (not a multiple of 16) gives the bits of one call."""
+    b, h, t, dk, dv = 1, 4, 80, 64, 64
+    r, k, v = _lm(32, (b, h, t, dk), (b, h, t, dk), (b, h, t, dv), device=cuda,
+                  dtype=torch.bfloat16)
+    w, u = _lm(33, (b, h, t, dk), (h, dk), device=cuda)
+    y, s = _rwkv6_held(r, k, v, w, u, None, torch.bfloat16)
+    y1, s1 = ops.rwkv6(*(x[:, :, :37] for x in (r, k, v, w)), u, force="kernel")
+    y2, s2 = ops.rwkv6(*(x[:, :, 37:] for x in (r, k, v, w)), u, s1, force="kernel")
+    assert torch.equal(torch.cat([y1, y2], 2), y) and torch.equal(s2, s)
+
+
 @pytest.mark.cuda
 def test_cuda_lm_wrappers_count_launches_and_check_inputs(cuda):
     from repro_torch.kernels import launch_counts, reset_launch_counts

@@ -142,6 +142,67 @@ def test_rglru_state_chaining():
     assert torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(h2, h)
 
 
+# The chunked scan of csrc/rglru.cu, written out in plain PyTorch: each chunk
+# but the last runs from h = 0 to its decay product and local end state, the
+# entry states are carried in chunk order (h_in(k+1) = prod_k * h_in(k) +
+# local_k), and every chunk re-runs from its entry state. Held to the JAX
+# oracle in float32 at 2e-5: the carry re-associates the products of up to
+# 64 decays and their sums, a few float32 roundings per chunk.
+RGLRU_CHUNK = 64
+DECAYS = ["random", "zero", "one", "mixed"]
+
+
+def _rglru_chunked(x, ig, rg, a_param, h0, c=8.0, chunk=RGLRU_CHUNK):
+    b, t, d = x.shape
+    log_a = -c * torch.nn.functional.softplus(a_param) * torch.sigmoid(rg)
+    a = torch.exp(log_a)
+    u = torch.sqrt(-torch.expm1(2.0 * log_a)) * torch.sigmoid(ig) * x
+    starts = list(range(0, t, chunk))
+    entry = [h0]
+    if len(starts) > 1:
+        for t0 in starts[:-1]:
+            h, prod = torch.zeros(b, d), torch.ones(b, d)
+            for i in range(t0, t0 + chunk):
+                h = a[:, i] * h + u[:, i]
+                prod = prod * a[:, i]
+            entry.append(prod * entry[-1] + h)
+    ys, h = [], h0
+    for t0, h in zip(starts, entry):
+        for i in range(t0, min(t0 + chunk, t)):
+            h = a[:, i] * h + u[:, i]
+            ys.append(h)
+    return (torch.stack(ys, 1) if ys else torch.zeros(b, 0, d)), h
+
+
+def _rglru_decay_inputs(seed, b, t, d, decay):
+    """a_t near 0 (a_param 10, rec_gate >= 10: a ~ 1e-35), near 1 (a_param
+    -20: a ~ 1 - 2e-8, the state carried across every chunk), random, or
+    the three side by side per channel."""
+    x, ig, rg, a, h0 = _inputs(seed, (b, t, d), (b, t, d), (b, t, d), (d,), (b, d))
+    zero, one = np.full(d, 10.0, np.float32), np.full(d, -20.0, np.float32)
+    lane = np.arange(d) % 3
+    if decay == "zero":
+        a, rg = zero, np.abs(rg) + 10.0
+    elif decay == "one":
+        a = one
+    elif decay == "mixed":
+        a = np.where(lane == 0, zero, np.where(lane == 1, one, a)).astype(np.float32)
+        rg = np.where(lane == 0, np.abs(rg) + 10.0, rg).astype(np.float32)
+    return [np.ascontiguousarray(v, np.float32) for v in (x, ig, rg, a, h0)]
+
+
+@pytest.mark.parametrize("t", [1, RGLRU_CHUNK - 1, RGLRU_CHUNK, RGLRU_CHUNK + 1, 200])
+@pytest.mark.parametrize("decay", DECAYS)
+def test_rglru_chunked_scan_matches_reference(t, decay):
+    arrays = _rglru_decay_inputs(12, 2, t, 48, decay)
+    (jx, jig, jrg, ja, jh0), (x, ig, rg, a, h0) = _both(arrays)
+    y, h = _rglru_chunked(x, ig, rg, a, h0)
+    assert bool(torch.isfinite(y).all() and torch.isfinite(h).all())
+    yr, hr = jref.rglru_ref(jx, jig, jrg, ja, jh0)
+    _close(y, yr, 2e-5)
+    _close(h, hr, 2e-5)
+
+
 # ---------------------------------------------------------------------------
 # RWKV-6
 # ---------------------------------------------------------------------------
@@ -187,6 +248,65 @@ def test_rwkv6_state_chaining():
     y1, s1 = ops.rwkv6(*(x[:, :, :40] for x in (r, k, v, w)), u)
     y2, s2 = ops.rwkv6(*(x[:, :, 40:] for x in (r, k, v, w)), u, s1)
     assert torch.equal(torch.cat([y1, y2], 2), y) and torch.equal(s2, s)
+
+
+# The split of csrc/rwkv6.cu, written out in plain PyTorch: Dv cut into
+# column groups that run alone; a column's readout r_t . S[:, j] as partial
+# sums over 8-row slices of Dk, added in slice order; and the bonus a scalar
+# per step and head, y_t[j] = readout + v_t[j] * (r_t . (u * k_t)). Held to
+# the JAX oracle in float32 at 2e-5: the same products, summed in another
+# order (slices, then the bonus added last).
+def _rwkv6_column_groups(r, k, v, w, u, s0, cols, rows=8):
+    b, h, t, dk = r.shape
+    dv = v.shape[-1]
+    decay = torch.exp(-torch.exp(w))
+    bonus = torch.einsum("bhti,hi,bhti->bht", r, u, k)
+    y = torch.zeros(b, h, t, dv)
+    s_out = torch.zeros(b, h, dk, dv)
+    for j0 in range(0, dv, cols):
+        cs = slice(j0, min(j0 + cols, dv))
+        s = s0[..., cs].clone()
+        for i in range(t):
+            parts = [(r[:, :, i, sl, None] * s[:, :, sl]).sum(2)
+                     for sl in (slice(i0, i0 + rows) for i0 in range(0, dk, rows))]
+            readout = parts[0]
+            for p in parts[1:]:
+                readout = readout + p
+            y[:, :, i, cs] = readout + v[:, :, i, cs] * bonus[:, :, i, None]
+            s = decay[:, :, i, :, None] * s + k[:, :, i, :, None] * v[:, :, i, None, cs]
+        s_out[..., cs] = s
+    return y, s_out
+
+
+def _rwkv6_decay_w(w, decay):
+    """w = -8 (decay exp(-3.4e-4): the state barely fades), w = +4 (decay
+    ~2e-24: gone in a step), the two alternating per channel, or random."""
+    if decay == "random":
+        return w
+    if decay == "mixed":
+        return np.broadcast_to(np.where(np.arange(w.shape[-1]) % 2 == 0, -8.0, 4.0),
+                               w.shape).astype(np.float32)
+    return np.full_like(w, float(decay))
+
+
+@pytest.mark.parametrize("b,h,t,dk,dv,cols", [
+    (1, 2, 21, 64, 64, 64),              # one group, RWKV6-7B's head
+    (2, 2, 20, 64, 100, 64),             # two groups, the second ragged
+    (1, 1, 17, 128, 64, 32),             # 16 slices, two groups
+    (1, 2, 9, 12, 20, 64),               # a slice padded past Dk
+    (2, 1, 1, 16, 16, 64),               # one decode step
+])
+@pytest.mark.parametrize("decay", ["random", "-8", "+4", "mixed"])
+def test_rwkv6_column_groups_match_reference(b, h, t, dk, dv, cols, decay):
+    arrays = _inputs(13, (b, h, t, dk), (b, h, t, dk), (b, h, t, dv), (b, h, t, dk), (h, dk),
+                     (b, h, dk, dv))
+    arrays[3] = _rwkv6_decay_w(arrays[3], decay)
+    (jr, jk, jv, jw, ju, js0), (r, k, v, w, u, s0) = _both(arrays)
+    y, s = _rwkv6_column_groups(r, k, v, w, u, s0, cols)
+    assert bool(torch.isfinite(y).all() and torch.isfinite(s).all())
+    yr, sr = jref.rwkv6_ref(jr, jk, jv, jw, ju, js0)
+    _close(y, yr, 2e-5)
+    _close(s, sr, 2e-5)
 
 
 # ---------------------------------------------------------------------------
