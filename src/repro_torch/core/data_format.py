@@ -52,6 +52,7 @@ __all__ = [
     "ShardedPlacement",
     "shard_payload",
     "is_sharded_payload",
+    "refuse_sharded",
 ]
 
 
@@ -226,6 +227,14 @@ class ShardedPlacement:
 def is_sharded_payload(prepared) -> bool:
     """True for payloads produced by :func:`shard_payload`."""
     return isinstance(prepared, Mapping) and "_n_shards" in prepared
+
+
+def refuse_sharded(prepared, family: str) -> None:
+    """Raise NotImplementedError for a row-sharded payload: ``family``'s
+    sharded cores are not ported yet."""
+    if is_sharded_payload(prepared):
+        raise NotImplementedError(
+            f"the row-sharded {family} cores are not ported yet (ROADMAP Queue 1 item 9)")
 
 
 def shard_payload(prepared, n_shards: int, *, n_rows: int | None = None):

@@ -482,8 +482,13 @@ cudaError_t launch_accumulate_t(const int* bins, const float* grad, const float*
                                 int n_acc, int n_chunks, int chunk_rows,
                                 int nodes_per_tile, const AccShape& shape,
                                 cudaStream_t stream) {
+  // The kernel opts into the device's whole shared memory, not this launch's
+  // need: executor threads launch it at other shapes at the same time, and a
+  // limit set to one launch's size could be lowered by another thread between
+  // that set and this launch (CUDA error 1, invalid argument).
   const cudaError_t e = cudaFuncSetAttribute(
-      hist_accumulate<VB, ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shape.smem);
+      hist_accumulate<VB, ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      device_smem_optin());
   if (e != cudaSuccess) return e;
   const int n_tiles = (n_acc + nodes_per_tile - 1) / nodes_per_tile;
   const int group = kLanes / ROWS;

@@ -8,6 +8,10 @@ overrides it for tests:
     force="kernel"    the CUDA kernel; raises for CPU tensors (it has no
                       CPU mode)
     force="ref"       the plain-PyTorch oracle (kernels/ref.py)
+    force="plain"     the plain path on any device: what a CPU tensor runs
+                      (the GBDT histograms as a scatter, with subtraction),
+                      cheap enough to set beside the kernel at full size
+                      where the one-hot oracle is not
     force=None        CUDA tensor → kernel, CPU tensor → plain path
 
 On a CUDA tensor the kernel runs or the call raises: nothing falls back.

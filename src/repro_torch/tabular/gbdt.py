@@ -72,10 +72,11 @@ def build_tree(
     feat/split_bin: (2^D − 1,) heap-ordered internal nodes; sentinel split is
     ``split_bin == n_bins - 1`` (no row has bin > B−1, so all go left).
     leaf_g/leaf_h: (2^D,) per-leaf grad/hess sums for the caller's leaf-value
-    formula (GBDT: −η·G/(H+λ)).
+    formula (GBDT: −η·G/(H+λ); forest: −G/H = mean target).
 
     ``depth_limit``/``bin_limit`` let one padded shape serve configs with a
-    shallower tree or a coarser quantisation (``train_batched``).
+    shallower tree or a coarser quantisation (``train_batched``); levels at
+    or past ``depth_limit`` are sentinels and launch nothing.
 
     Each level is one ``ops.level_split``. With ``subtract`` (the default)
     the level's histograms are cached and the NEXT level builds only the
@@ -92,9 +93,10 @@ def build_tree(
     node = torch.zeros(r, dtype=torch.int32, device=dev)   # level-local node
     feats, splits = [], []
     parent = None                            # previous level's histograms
-    for level in range(max_depth):
+    n_split = max_depth if depth_limit is None else min(max_depth, int(depth_limit))
+    for level in range(n_split):
         n_nodes = 1 << level
-        keep_hist = subtract and level + 1 < max_depth
+        keep_hist = subtract and level + 1 < n_split
         parent, best_gain, feat, split = ops.level_split(
             bins, g, h, node, n_nodes=n_nodes, n_bins=n_bins,
             lam=lam, min_child_weight=min_child_weight,
@@ -102,8 +104,6 @@ def build_tree(
             parent_hist=parent if subtract else None,
             return_hist=keep_hist, force=force)
         is_leaf = best_gain <= gamma
-        if depth_limit is not None and level >= depth_limit:
-            is_leaf = torch.ones_like(is_leaf)
         feat = torch.where(is_leaf, torch.zeros_like(feat), feat)
         # sentinel split: every row routes left
         split = torch.where(is_leaf, torch.full_like(split, n_bins - 1), split)
@@ -112,10 +112,21 @@ def build_tree(
         nl = node.long()
         row_bin = torch.gather(bins, 1, feat[nl].long()[:, None])[:, 0]
         node = 2 * node + (row_bin > split[nl]).to(torch.int32)
-    n_leaves = 1 << max_depth
     leaf = ops.histogram(torch.zeros((r, 1), dtype=torch.int32, device=dev),
-                         g, h, node, n_nodes=n_leaves, n_bins=1, force=force)
-    return torch.cat(feats), torch.cat(splits), leaf[:, 0, 0, 0], leaf[:, 0, 0, 1]
+                         g, h, node, n_nodes=1 << n_split, n_bins=1, force=force)
+    leaf_g, leaf_h = leaf[:, 0, 0, 0], leaf[:, 0, 0, 1]
+    pad = max_depth - n_split
+    if pad:
+        # levels past this config's own depth (a padded batch): sentinel
+        # nodes, every row goes left, so leaf j of the unpadded tree is
+        # leaf j << pad here and the leaf sums are the unpadded tree's
+        for level in range(n_split, max_depth):
+            feats.append(torch.zeros(1 << level, dtype=torch.int32, device=dev))
+            splits.append(torch.full((1 << level,), n_bins - 1, dtype=torch.int32,
+                                     device=dev))
+        leaf_g, leaf_h = (torch.nn.functional.pad(v[:, None], (0, (1 << pad) - 1)).reshape(-1)
+                          for v in (leaf_g, leaf_h))
+    return torch.cat(feats), torch.cat(splits), leaf_g, leaf_h
 
 
 def predict_margin(bins, feat, split, leaf_value, max_depth: int):

@@ -555,3 +555,105 @@ def test_cuda_lm_path_matches_plain_path(cuda, arch):
     outs = [ServeEngine(cfg, params, batch_size=4, max_len=32, cache_dtype=torch.float32,
                         force=f).serve(w) for w, f in zip(waves, (None, "ref"))]
     assert [r.output for r in outs[0]] == [r.output for r in outs[1]]
+
+
+# ---------------------------------------------------------------------------
+# The forest on the card. Its statistics are integers (g = -y*w, h = w with
+# Poisson bootstrap weights), so every histogram sum is exact: the kernel
+# path and the plain path grow bit-identical trees.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,nn", [(20000, 1), (30000, 64), (60000, 512)])
+def test_cuda_forest_level_mask_and_poisson_stats_bit_equal(cuda, r, nn):
+    """A forest level at B = 256: 5 of 28 features unmasked, Poisson integer
+    hessians, direct and subtraction; histograms and decisions equal to the
+    plain path's on the CPU."""
+    rng = np.random.default_rng(nn)
+    f, nb = 28, 256
+    bins = rng.integers(0, nb, size=(r, f)).astype(np.int32)
+    w = rng.poisson(1.0, size=r).astype(np.float32)
+    y = rng.integers(0, 2, size=r).astype(np.float32)
+    node = rng.integers(0, nn, size=r).astype(np.int32)
+    mask = np.zeros(f, bool)
+    mask[rng.permutation(f)[:5]] = True
+    host = [torch.from_numpy(a) for a in (bins, -y * w, w, node)]
+    t = [a.to(cuda) for a in host]
+    kw = dict(n_nodes=nn, n_bins=nb, lam=1e-6, min_child_weight=1.0)
+    plain = ops.level_split(*host, feat_mask=torch.from_numpy(mask), **kw)
+    got = [ops.level_split(*t, feat_mask=torch.from_numpy(mask).to(cuda), **kw)]
+    if nn > 1:
+        got.append(ops.level_split(*t, feat_mask=torch.from_numpy(mask).to(cuda),
+                                   parent_hist=_parent(t, nn, nb), **kw))
+    for g in got:
+        assert torch.equal(g[0].cpu(), plain[0])
+        assert torch.equal(g[2].cpu(), plain[2]) and torch.equal(g[3].cpu(), plain[3])
+        real = torch.isfinite(g[1]).cpu()
+        assert bool(torch.from_numpy(mask)[g[2].cpu()[real].long()].all())
+
+
+@pytest.mark.cuda
+def test_cuda_forest_kernel_path_equals_plain_path_at_depth_10(cuda):
+    """Whole forests at depth 10 on 256 bins: the kernel path and the plain
+    paths (``force="ref"``, the oracle, and ``force="plain"``, the scatter)
+    on the card grow the same trees, bit for bit, and two kernel runs and a
+    resume 2 + 2 do too."""
+    from repro_torch.core import convert, get_estimator
+    from repro_torch.data.synthetic import make_higgs_like
+
+    import repro_torch.tabular  # noqa: F401  (registers the forest)
+
+    data = convert(make_higgs_like(30000, seed=3), "quantized_bins", device=cuda)
+    assert int(data["n_bins"]) == 256
+    est = get_estimator("forest")
+    params = {"n_estimators": 4, "max_depth": 10, "seed": 5}
+    kern = est.train(data, params)
+    again = est.train(data, params)
+    plain = est.train(data, params, force="ref")
+    scatter = est.train(data, params, force="plain")
+    _, half = est.train_resumable(data, params, budget=2)
+    resumed, _ = est.train_resumable(data, params, budget=4, state=half)
+    for other in (again, plain, scatter, resumed):
+        for k in ("feat", "thresh", "leaves"):
+            np.testing.assert_array_equal(getattr(kern, k), getattr(other, k))
+    assert kern.feat.shape == (4, 1023) and np.isfinite(kern.leaves).all()
+
+
+@pytest.mark.cuda
+def test_cuda_level_split_from_threads_at_other_shapes(cuda):
+    """Executor threads share the card and launch the level kernel at other
+    shapes at once (a forest at B = 256 beside a GBDT at B = 32): every
+    launch succeeds and gives what it gives alone."""
+    import sys
+    import threading
+
+    shapes = [(32, 8), (256, 64), (64, 1), (256, 512)]
+    cases = [_fixture(40 + i, 30000, 28, nb, nn, cuda, integer=True)
+             for i, (nb, nn) in enumerate(shapes)]
+    alone = [ops.level_split(*t, n_nodes=nn, n_bins=nb, lam=1.0, min_child_weight=1.0)
+             for t, (nb, nn) in zip(cases, shapes)]
+    errors, bad = [], []
+
+    def worker(k):
+        try:
+            t, (nb, nn) = cases[k % 4], shapes[k % 4]
+            for _ in range(40):
+                got = ops.level_split(*t, n_nodes=nn, n_bins=nb, lam=1.0, min_child_weight=1.0)
+                if not all(torch.equal(a, b) for a, b in zip(got, alone[k % 4])):
+                    bad.append(k)
+        except Exception as exc:        # recorded, asserted below
+            errors.append(repr(exc))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=worker, args=(k,)) for k in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors[:3]
+    assert not bad

@@ -1,0 +1,151 @@
+"""The port's search across the paper's families, its deprecated builder
+shim and its launcher, on the CPU.
+
+A ``Session`` over one config of each family runs in both packages on
+``higgs_small``; every task must succeed and each config's validation AUC
+must lie within ``AUC_TOL`` of the JAX package's. The forest and the MLP
+draw from the port's own generators there (PyTorch cannot reproduce
+``jax.random``), so their models differ from JAX's by their random draws;
+``test_torch_forest.py`` and ``test_torch_linear.py`` hold them to JAX's with
+the same draws. For the MLP that difference stays inside ``AUC_TOL``. The
+forest's does not: its AUC moves by 0.05 between seeds of the JAX package's
+own forest (0.866–0.916 over seeds 0–4 at 30 trees of depth 6, a feature
+subset per tree), so the port's forest is held to that spread widened by
+``AUC_TOL``, and the Session's forest score to the port's own direct fit
+exactly. Gaps measured on these configs: gbdt, logreg and the numpy
+families 0, MLP 1.0e-3, forest 7.7e-3 (inside JAX's seed spread).
+"""
+import warnings
+
+import pytest
+
+# the port needs PyTorch; where it is not installed only the JAX suite runs
+torch = pytest.importorskip("torch")
+
+import repro.tabular  # noqa: F401,E402  (registers the JAX estimators)
+import repro_torch.tabular  # noqa: F401,E402  (registers the port's estimators)
+from repro.core import GridBuilder as JGridBuilder  # noqa: E402
+from repro.core import SearchSpec as JSearchSpec  # noqa: E402
+from repro.core import Session as JSession  # noqa: E402
+from repro.core.interface import get_estimator as jget  # noqa: E402
+from repro_torch import set_default_device  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    DenseMatrix,
+    GridBuilder,
+    ModelSearcher,
+    MultiModel,
+    SamplingProfiler,
+    SearchSpec,
+    Session,
+    auc,
+    get_estimator,
+)
+from repro_torch.launch import search  # noqa: E402
+
+set_default_device("cpu")
+
+AUC_TOL = 5e-3
+FAMILIES = {
+    "gbdt": {"round": [10], "max_depth": [4], "max_bin": [32]},
+    "forest": {"n_estimators": [30], "max_depth": [6]},
+    "logreg": {"c": [0.3]},
+    "mlp": {"network": ["64_64"], "steps": [200], "learning_rate": [0.003]},
+    "np_logreg": {"steps": [100]},
+    "np_mlp": {"network": ["32"], "steps": [100]},
+}
+
+
+def _spaces(builder_cls):
+    out = []
+    for family, grid in FAMILIES.items():
+        b = builder_cls(family)
+        for k, v in grid.items():
+            b.add_grid(k, v)
+        out.append(b.build())
+    return out
+
+
+def _port(dm):
+    return DenseMatrix(dm.x, dm.y, dm.feature_names)
+
+
+def test_session_over_every_family_matches_reference(higgs_small):
+    train, valid = higgs_small
+    jres = list(JSession(JSearchSpec(spaces=_spaces(JGridBuilder), n_executors=2,
+                                     policy="round_robin")).results(train, valid))
+    session = Session(SearchSpec(spaces=_spaces(GridBuilder), n_executors=2, policy="lpt",
+                                 profiler=SamplingProfiler(0.05)))
+    tres = list(session.results(_port(train), _port(valid)))
+    assert all(r.ok and r.score is not None for r in tres + jres)
+    want = {r.task.key(): r.score for r in jres}
+    got = {r.task.key(): r.score for r in tres}
+    assert sorted(got) == sorted(want) and len(got) == len(FAMILIES)
+    forest_key = next(k for k in got if k.startswith("forest"))
+    gaps = {k: abs(got[k] - want[k]) for k in want if k != forest_key}
+    assert max(gaps.values()) <= AUC_TOL, gaps
+    best = session.multi_model().best(_port(valid))
+    assert best.score == pytest.approx(max(got.values()))
+    # the forest: the port's own fit exactly, and inside JAX's seed spread
+    params = {k: v[0] for k, v in FAMILIES["forest"].items()}
+    fit = get_estimator("forest").train(
+        get_estimator("forest").prepare(_port(train), {}), params)
+    assert got[forest_key] == auc(valid.y, fit.predict_proba_device(valid.x))
+    jdata = jget("forest").prepare(train, {})
+    spread = [auc(valid.y, jget("forest").train(jdata, {**params, "seed": s})
+                  .predict_proba(valid.x)) for s in range(5)]
+    assert min(spread) - AUC_TOL <= got[forest_key] <= max(spread) + AUC_TOL, \
+        (got[forest_key], spread)
+
+
+def test_model_searcher_shim_runs_a_search(higgs_small):
+    train, valid = higgs_small
+    with pytest.warns(DeprecationWarning, match="ModelSearcher is deprecated"):
+        searcher = ModelSearcher(n_executors=2)
+    space = (GridBuilder("logreg").add_grid("c", [0.1, 0.9]).add_grid("steps", [50]).build())
+    searcher.add_space(space).set_scheduler("round_robin").set_metric("auc")
+    spec = searcher.to_spec()
+    assert spec.n_executors == 2 and spec.policy == "round_robin"
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", DeprecationWarning)
+        multi = searcher.model_search(_port(train))
+    assert isinstance(multi, MultiModel) and len(multi) == 2
+    assert searcher.stats.n_tasks == 2
+    scores = multi.validate_all(_port(valid), metric="auc")
+    assert all(0.5 < s.score <= 1.0 for s in scores)
+    with pytest.raises(ValueError, match="unknown metric"):
+        searcher.set_metric("nope")
+
+
+def test_cli_runs_the_paper_grid_on_the_cpu(capsys):
+    search.main(["--device", "cpu", "--rows", "2000", "--scale", "0.1",
+                 "--executors", "2"])
+    out = capsys.readouterr().out
+    assert "search space: 89 configurations over ['gbdt', 'mlp', 'forest', 'logreg']" in out
+    summary = next(line for line in out.splitlines() if line.startswith("policy=lpt"))
+    assert "failures=0" in summary
+    best = next(line for line in out.splitlines() if line.startswith("best: "))
+    valid_auc = float(best.split("valid auc=")[1].split()[0])
+    assert 0.8 < valid_auc <= 1.0
+
+
+def test_cli_paper_space_matches_reference():
+    from repro.launch.search import paper_search_space as jspace
+
+    for scale in (0.1, 1.0):
+        mine, ref = search.paper_search_space(scale), jspace(scale)
+        assert [s.estimator for s in mine] == [s.estimator for s in ref]
+        assert [list(s.configs) for s in mine] == [list(s.configs) for s in ref]
+    assert sum(len(s.configs) for s in search.paper_search_space(1.0)) == 89
+    assert search._parse_tuner_args(["eta=3", "base_budget=2.5", "kind=x"]) == \
+        {"eta": 3, "base_budget": 2.5, "kind": "x"}
+
+
+def test_cli_refuses_what_is_not_ported_and_a_missing_card():
+    with pytest.raises(NotImplementedError, match="item 9"):
+        search.main(["--workload", "lm"])
+    with pytest.raises(NotImplementedError, match="item 9"):
+        search.main(["--device", "cpu", "--shards", "2"])
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device exists")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        search.main(["--rows", "100", "--scale", "0.1"])

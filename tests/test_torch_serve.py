@@ -93,7 +93,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
     assert {"repro_torch.kernels.flash_attention", "repro_torch.serve.engine",
-            "repro_torch.launch.serve"} <= set(names)
+            "repro_torch.launch.serve", "repro_torch.tabular.forest",
+            "repro_torch.launch.search"} <= set(names)
     code = (
         "import importlib, importlib.util, sys\n"
         f"for name in {names!r}:\n"
