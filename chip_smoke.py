@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases 1,2    # a subset, for debugging
     python3 chip_smoke.py --phases 6,7,8  # the LM serving path only
     python3 chip_smoke.py --phases 1,9,10 # the paper's grid only
+    python3 chip_smoke.py --phases 1,11,12 # the sharded search and the service only
 
 It imports only the port (``src/repro_torch``), never JAX or the JAX
 package, and exits non-zero without printing a result when CUDA is absent
@@ -48,7 +49,22 @@ or any phase fails. Phases:
    on the card within tolerance of its CPU run, and the same search with
    ``--fuse`` giving the same scores and trees;
 10. the same grid on SECOM-like data (1,567 rows x 590 features), with the
-   GBDT and forest kernel paths against their plain paths.
+   GBDT and forest kernel paths against their plain paths;
+11. the row-sharded search (DESIGN.md §3.9): a cut grid of every family on
+   1,000,000 HIGGS-like rows through ``run_tabular`` at ``--shards`` 1, 2
+   and 4, the sharded levels through the histogram kernel and the split
+   scan: tree AUC and logreg/MLP margins against ``--shards 1``, per-shard
+   residency, a ``MeshSliceExecutorPool`` in shard groups against the
+   thread pool, one sharded config's device-busy share;
+12. the multi-tenant ``SearchService``: a replicated and a 2-shard tenant at
+   once on one shared cache, then the sharded tenant again under injected
+   train failures with retries; exact per-tenant ledgers and the same best
+   configuration.
+
+Phase 2 also holds the sharded level (the shards' partial histograms in
+one histogram launch, summed in shard order, scanned by ``split_scan``)
+against the unsharded level kernel, and phase 6 RWKV-6 in float32 at
+RWKV6-7B's serving shape, its error printed per window of steps.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -80,6 +96,9 @@ SKEW_SHARE = 0.9                        # phase 2's skewed cells: rows in bin 0
 # phase 2's forest cell: the paper grid's deepest forest level (depth 10) on
 # the training rows of a 1,000,000-row search, sqrt(28) = 5 features a tree
 FOREST_R, FOREST_NODES, FOREST_FEATURES = 600_000, 512, 5
+# phase 2's sharded-level cells: shard counts and a level of 64 nodes (a
+# depth-7 tree's deepest level, and above the paper grid's depth-6 GBDT)
+SHARD_COUNTS, SHARD_NODES = (2, 4, 8), 64
 
 
 def _bound_ms(n_bytes: float, n_flops: float,
@@ -359,6 +378,115 @@ def _forest_cell(torch, gen, out: dict) -> None:
                                library_ms=lib_ms, bound_ms=bound, bound_by=by)
 
 
+def _sharded_stats(torch, gen, r, integer):
+    """Phase 2's sharded cells' statistics: a logistic round's g/h at a
+    seeded random margin (or integer-valued ones), and a random node of
+    SHARD_NODES per row."""
+    y = (torch.rand(r, generator=gen, device="cuda") < 0.5).float()
+    if integer:
+        g = torch.randint(-8, 9, (r,), generator=gen, device="cuda").float()
+        h = torch.randint(1, 5, (r,), generator=gen, device="cuda").float()
+    else:
+        p = torch.sigmoid(torch.randn(r, generator=gen, device="cuda"))
+        g, h = p - y, p * (1 - p)
+    node = torch.randint(0, SHARD_NODES, (r,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    return g, h, node
+
+
+def _sharded_cells(torch, gen, out: dict) -> None:
+    """Phase 2's sharded-level cells (DESIGN.md §3.9): the level on the
+    shards' stacked row blocks (one ``histogram_cuda`` launch for every
+    shard's partial histogram, a shard-order sum, ``split_scan_cuda``)
+    against the unsharded level kernel, at R = 800,000 HIGGS-like rows, F =
+    28, B in {64, 256}, S in {2, 4, 8}, N = SHARD_NODES, direct and by
+    subtraction: histograms within HIST_TOL and decisions tie-aware on real
+    g/h, bit-equal histograms and equal decisions on integer g/h, two runs
+    bit-identical, each run's launches counted. Also the split scan alone
+    against its plain version, for the kernels line."""
+    from repro_torch.compat import sharded_call
+    from repro_torch.core import convert
+    from repro_torch.core.data_format import shard_payload
+    from repro_torch.data.synthetic import make_higgs_like
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.histogram import launch_counts, split_scan_cuda
+
+    higgs = make_higgs_like(R_KERNEL, seed=2)
+    nn, lam, mcw = SHARD_NODES, 1.0, 1.0
+    kw = dict(n_nodes=nn, lam=lam, min_child_weight=mcw)
+    rows = []
+    for nb in (64, 256):
+        bins = convert(higgs, "quantized_bins", max_bins=nb, device="cuda")["bins"]
+        for integer in (False, True):
+            g, h, node = _sharded_stats(torch, gen, R_KERNEL, integer)
+            plain = ops._histogram_scatter(bins, g, h, node, nn, nb)
+            parent = ops._histogram_scatter(bins, g, h, node // 2, nn // 2, nb)
+            for s in SHARD_COUNTS:
+                sh = shard_payload({"bins": bins, "g": g, "h": h, "node": node}, s)
+                blocks = [sh[k] for k in ("bins", "g", "h", "node", "_shard_valid")]
+                for mode, ph in (("direct", None), ("subtraction", parent)):
+                    run = sharded_call(
+                        lambda axis, b, gg, hh, nd, v: ops.level_split(
+                            b, gg, hh, nd, n_bins=nb, axis_name=axis, row_valid=v,
+                            parent_hist=ph, **kw), n_shards=s)
+                    before = launch_counts()
+                    got = run(*blocks)
+                    torch.cuda.synchronize()
+                    after = launch_counts()
+                    launches = {k: after[k] - before[k] for k in after}
+                    _check(launches == {"histogram": 1, "level_split": 0, "split_scan": 1},
+                           f"sharded level launched {launches}")
+                    _check(all(torch.equal(a, b) for a, b in zip(got, run(*blocks))),
+                           f"sharded level B={nb} S={s} {mode}: two runs differ")
+                    label = f"B={nb} S={s} {mode}{' integer' if integer else ''}"
+                    err = float((got[0] - plain).abs().max())
+                    if integer:
+                        base = ops.level_split(bins, g, h, node, n_bins=nb, parent_hist=ph, **kw)
+                        _check(torch.equal(got[0], plain) and all(
+                            torch.equal(a, b) for a, b in zip(got[1:], base[1:])),
+                            f"sharded level {label}: not bit-equal to the unsharded level")
+                        continue
+                    _check(torch.allclose(got[0], plain, **HIST_TOL),
+                           f"sharded level {label}: hist off by {err}")
+                    gap, gtol, flips = _decisions_tie_aware(
+                        torch, ref, plain, got[0], got, dict(lam=lam, min_child_weight=mcw,
+                                                             n_bins=nb))
+                    ms = _time_ms(torch, lambda: run(*blocks))
+                    base_ms = _time_ms(torch, lambda: ops.level_split(
+                        bins, g, h, node, n_bins=nb, parent_hist=ph, **kw))
+                    rows.append(dict(B=nb, S=s, mode=mode, ms=ms, unsharded_ms=base_ms,
+                                     max_abs_err=err, gain_gap=gap))
+                    print(f"  sharded level {label} N={nn}: {ms:.3f} ms (unsharded level "
+                          f"kernel {base_ms:.3f} ms), launches {launches} a level, "
+                          f"max|err| {err:.3g}, gain gap {gap:.3g} (tol {gtol:.3g}, "
+                          f"legality flips {flips}); integer g/h bit-equal", flush=True)
+    # the split scan alone, at the last level of a depth-6 GBDT (N = 32)
+    # on 64 bins: the numbers of the kernels line
+    bins, g, h, node = _level_inputs(torch, gen, R_KERNEL, F_KERNEL, 64, 32)
+    hist = ops._histogram_scatter(bins, g, h, node, 32, 64)
+    got = split_scan_cuda(hist, lam=lam, min_child_weight=mcw)
+    want = ref.split_scan_ref(hist, lam=lam, min_child_weight=mcw, n_bins=64)
+    torch.cuda.synchronize()
+    _decisions_tie_aware(torch, ref, hist, hist, (None, *got),
+                         dict(lam=lam, min_child_weight=mcw, n_bins=64))
+    fin = torch.isfinite(want[0])
+    err = float((got[0] - want[0])[fin].abs().max())
+    _check(all(torch.equal(a, b) for a, b in zip(got, split_scan_cuda(
+        hist, lam=lam, min_child_weight=mcw))), "split scan: two launches differ")
+    n_cells = 32 * F_KERNEL * 64
+    bound, by = _bound_ms(n_cells * 8 + F_KERNEL * 4 + 32 * 12, 10 * n_cells)
+    out["split_scan"] = dict(
+        ms=_time_ms(torch, lambda: split_scan_cuda(hist, lam=lam, min_child_weight=mcw)),
+        plain_ms=_time_ms(torch, lambda: ref.split_scan_ref(
+            hist, lam=lam, min_child_weight=mcw, n_bins=64)),
+        max_abs_err=err, bound_ms=bound, bound_by=by, library_ms=None)
+    sc = out["split_scan"]
+    print(f"  split scan alone N=32 F={F_KERNEL} B=64: {sc['ms']:.4f} ms, plain "
+          f"{sc['plain_ms']:.4f} ms, bound {bound:.5f} ms ({by}), best-gain max|err| "
+          f"{err:.3g}, decisions tie-aware", flush=True)
+    out["sharded_rows"] = rows
+
+
 def phase_kernels(torch, out: dict) -> None:
     from repro_torch.kernels import ops
     from repro_torch.kernels.histogram import histogram_cuda
@@ -372,6 +500,7 @@ def phase_kernels(torch, out: dict) -> None:
     for nb, nn, skew in cells:
         rows.append(_level_cell(torch, gen, r, f, nb, nn, skew))
     _forest_cell(torch, gen, out)
+    _sharded_cells(torch, gen, out)
     # integer-valued grad/hess: every sum is exact, so bit-equal in any order
     for nb, nn, skew in ((64, 1, False), (256, 32, False), (256, 8, True)):
         bins, g, h, node = _level_inputs(torch, gen, r, f, nb, nn, integer=True, skew=skew)
@@ -804,6 +933,285 @@ def phase_secom_grid(torch, out: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The row-sharded search (phase 11) and the multi-tenant service (phase 12)
+# ---------------------------------------------------------------------------
+
+# phase 11: the paper's HIGGS sample size with UCI HIGGS's 28 features, split
+# 0.6 / 0.2 / 0.2, and a cut grid that keeps every family (9 configs)
+SHARD_ROWS = 1_000_000
+SHARD_SEARCH_SHARDS = (1, 2, 4)
+SHARD_AUC_TOL = 5e-3        # tree families: AUC against --shards 1
+# logreg / MLP validation margins against --shards 1, in units of the
+# largest |margin| (at least 1): the shards sum each gradient in another
+# order, Adam carries the rounding on, and the MLPs' margins reach ~100,
+# where one float32 ulp is 7.6e-6 (a CPU rehearsal at 4,000 rows: 5.3e-5
+# absolute at max |margin| 108)
+SHARD_MARGIN_TOL = 1e-5
+# phase 12: the service's rows, its tenants and the chaos run's faults
+SERVICE_ROWS = 250_000
+SERVICE_TENANTS = {"alice": 2.0, "bob": 1.0}
+CHAOS_FAILURE_RATE, CHAOS_RETRIES = 0.2, 3
+
+
+def _shard_grid():
+    from repro_torch.core import GridBuilder
+
+    return [GridBuilder("gbdt").add_grid("eta", [0.1, 0.3]).add_grid("max_bin", [64, 256])
+            .add_grid("max_depth", [6]).add_grid("round", [30]).build(),
+            GridBuilder("forest").add_grid("n_estimators", [50]).add_grid("max_depth", [8])
+            .build(),
+            GridBuilder("logreg").add_grid("c", [0.1, 0.9]).build(),
+            GridBuilder("mlp").add_grid("network", ["128_128"])
+            .add_grid("learning_rate", [0.003, 0.03]).add_grid("steps", [200]).build()]
+
+
+def _sharded_search(torch, n_shards: int, backend=None, label=None):
+    """One search of the cut grid through the CLI's ``run_tabular`` at
+    ``--shards n_shards``, the GBDT kernels' counts set to 0 just before
+    and read just after; every task trained and scored, and every tree
+    level of the search's own fits through the level kernel (unsharded) or
+    the histogram kernel and the split scan (sharded)."""
+    from repro_torch.core import prepared_data_cache
+    from repro_torch.kernels.histogram import launch_counts, reset_launch_counts
+    from repro_torch.launch import search
+
+    args = search.parse_args(["--dataset", "higgs", "--rows", str(SHARD_ROWS), "--scale",
+                              "1.0", "--executors", "2", "--shards", str(n_shards)])
+    prepared_data_cache().clear()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    session = search.run_tabular(args, spaces=_shard_grid(), backend=backend)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    label = label or f"--shards {n_shards}"
+    multi = session.multi_model()
+    n_tasks = sum(len(s.configs) for s in _shard_grid())
+    _check(not multi.failures, f"{label}: failed tasks {[r.error for r in multi.failures][:3]}")
+    results = {r.task.key(): r for r in multi.results}
+    _check(len(results) == n_tasks and all(r.score is not None for r in results.values()),
+           f"{label}: {len(results)} results of {n_tasks}, some unscored")
+    levels = trees = 0
+    for r in results.values():
+        n = {"gbdt": r.task.params.get("round"),
+             "forest": r.task.params.get("n_estimators")}.get(r.task.estimator)
+        if n is not None:
+            levels += n * r.task.params["max_depth"]
+            trees += n
+    level_path = "split_scan" if n_shards > 1 else "level_split"
+    _check(counts[level_path] >= levels and counts["histogram"] >= trees,
+           f"{label}: launches {counts}, the search's own fits need {levels} levels")
+    if n_shards > 1:
+        # every sharded level is one histogram launch (all shards) + one scan
+        _check(counts["histogram"] >= levels + trees, f"{label}: launches {counts}")
+    print(f"  {label}: {len(results)} tasks in {wall:.2f} s, launches {counts} (the "
+          f"search's own fits: {levels} levels, {trees} trees; the rest the profiler's), "
+          f"shard residency {session.stats.shard_residency_bytes} bytes", flush=True)
+    return args, session, results, counts, wall
+
+
+def phase_sharded_search(torch, out: dict) -> None:
+    """The row-sharded search (DESIGN.md §3.9): the cut grid at --shards 1,
+    2 and 4 through ``run_tabular``; tree families' validation AUC within
+    SHARD_AUC_TOL of --shards 1 and logreg/MLP validation margins within
+    SHARD_MARGIN_TOL; per-shard residency within a full copy / S plus pad
+    slack; a MeshSliceExecutorPool of 4 slices on cuda:0 in 2 shard groups
+    giving the thread pool's results; one sharded config's device-busy
+    share alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import default_device
+    from repro_torch.core import (MeshSliceExecutorPool, get_estimator, prepare_cached,
+                                  prepared_data_cache)
+    from repro_torch.core.data_format import ShardedPlacement
+    from repro_torch.launch import search
+    from repro_torch.launch.mesh import make_mesh
+
+    runs = {}
+    for s in SHARD_SEARCH_SHARDS:
+        args, session, results, counts, wall = _sharded_search(torch, s)
+        runs[s] = results
+        if s == 1:
+            full_bytes = prepared_data_cache().bytes_cached
+            n_entries = prepared_data_cache().n_entries
+            _, valid, _ = search.tabular_data(args)
+            x_val = torch.as_tensor(valid.x, device=default_device())
+        out.setdefault("sharded_search", {})[s] = dict(wall_s=wall, launches=counts)
+        _add_launches(out, counts)
+        if s == 1:
+            continue
+        resident = session.stats.shard_residency_bytes
+        rows_per_shard = -(-int(SHARD_ROWS * 0.6) // s)
+        # pad slack per entry: its zero-padded rows (fewer than S, at up to
+        # 29 four-byte columns a row), its validity mask, and its replicated
+        # leaves (bin edges: 28 x 255 float32 at most)
+        slack = n_entries * (s * 29 * 4 + rows_per_shard + 28 * 255 * 4)
+        _check(0 < resident <= full_bytes / s + slack,
+               f"--shards {s}: residency {resident} beyond {full_bytes}/{s} + {slack}")
+        auc_gap, margin_gap, margin_abs = 0.0, 0.0, 0.0
+        for key, r in results.items():
+            b = runs[1][key]
+            if r.task.estimator in ("gbdt", "forest"):
+                auc_gap = max(auc_gap, abs(r.score - b.score))
+            else:
+                m_s, m_1 = (m.model.predict_margin_device(x_val) for m in (r, b))
+                gap = float(np.abs(m_s - m_1).max())
+                margin_abs = max(margin_abs, gap)
+                margin_gap = max(margin_gap, gap / max(1.0, float(np.abs(m_1).max())))
+        print(f"  --shards {s} against --shards 1: GBDT/forest validation AUC gap "
+              f"{auc_gap:.3g} (tol {SHARD_AUC_TOL:g}), logreg/MLP validation margin gap "
+              f"{margin_abs:.3g}, {margin_gap:.3g} of max |margin| (tol {SHARD_MARGIN_TOL:g}); "
+              f"residency {resident} bytes "
+              f"against a full copy's {full_bytes} / {s} = {full_bytes / s:.0f} + slack "
+              f"{slack}", flush=True)
+        _check(auc_gap <= SHARD_AUC_TOL, f"--shards {s}: tree AUC off by {auc_gap:.3g}")
+        _check(margin_gap <= SHARD_MARGIN_TOL, f"--shards {s}: margins off by {margin_gap:.3g}")
+        out["sharded_search"][s].update(auc_gap=auc_gap, margin_gap=margin_gap,
+                                        margin_abs=margin_abs,
+                                        residency_bytes=resident, full_bytes=full_bytes)
+
+    # the mesh pool: 4 slices of cuda:0 in 2 shard groups of 2
+    pool = MeshSliceExecutorPool(make_mesh((4,), ("data",), "cuda:0"), 4, n_shards=2)
+    _check(pool.n_executors == 2 and all(
+        isinstance(tok, ShardedPlacement) for tok in pool.prepare_placements()),
+        "the mesh pool's shard groups")
+    _, _, mesh_results, mcounts, mwall = _sharded_search(
+        torch, 2, backend=pool, label="MeshSliceExecutorPool(n_shards=2) over 4 slices")
+    _add_launches(out, mcounts)
+    _check(mesh_results.keys() == runs[2].keys() and all(
+        r.score == runs[2][k].score for k, r in mesh_results.items()),
+        "the mesh pool's scores differ from the thread pool's")
+    print(f"  the mesh pool's {len(mesh_results)} scores equal the thread pool's at "
+          f"--shards 2", flush=True)
+
+    # one sharded config alone: its wall and the device's busy share
+    est = get_estimator("gbdt")
+    params = {"eta": 0.3, "max_bin": 64, "max_depth": 6, "round": 30}
+    train, _, _ = search.tabular_data(args)
+    data, _, _ = prepare_cached(train, "quantized_bins", est.format_params(params),
+                                placement=ShardedPlacement(2))
+    est.train(data, params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est.train(data, params)
+    torch.cuda.synchronize()
+    alone_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        est.train(data, params)
+        torch.cuda.synchronize()
+    dev_us = sum(_self_device_us(e) for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy = dev_us / 1e6 / alone_s if dev_us > 0 else None
+    print(f"  gbdt {params} at --shards 2 alone: {alone_s:.3f} s, device busy "
+          f"{'not measured' if busy is None else f'{busy:.3f}'}", flush=True)
+    out["sharded_search"]["mesh_wall_s"] = mwall
+    out["sharded_search"]["gbdt_alone"] = dict(train_s=alone_s, device_busy=busy)
+
+
+def _service_grid():
+    from repro_torch.core import GridBuilder
+
+    return [GridBuilder("gbdt").add_grid("eta", [0.1, 0.3]).add_grid("max_bin", [32, 64])
+            .add_grid("max_depth", [4, 6]).add_grid("round", [20]).build(),
+            GridBuilder("forest").add_grid("n_estimators", [20]).add_grid("max_depth", [6])
+            .build(),
+            GridBuilder("logreg").add_grid("c", [0.1, 0.9]).build(),
+            GridBuilder("mlp").add_grid("network", ["64_64"])
+            .add_grid("learning_rate", [0.003]).add_grid("steps", [100]).build()]
+
+
+def phase_service(torch, out: dict) -> None:
+    """The multi-tenant search service (DESIGN.md §3.5) and chaos (§3.7):
+    one SearchService, tenants alice (weight 2, a replicated search) and
+    bob (weight 1, a 2-shard search) at once on one shared prepared cache,
+    then bob again under injected train failures with retries. Every task
+    scored exactly once, the per-tenant ledgers equal to what was
+    submitted and summing to the cache's counters, sharded and replicated
+    entries side by side, and the chaos run's best configuration the run
+    without chaos's."""
+    from repro_torch.core import PreparedDataCache, SearchSpec
+    from repro_torch.core.chaos import FaultPlan
+    from repro_torch.data.synthetic import make_higgs_like
+    from repro_torch.kernels.histogram import launch_counts, reset_launch_counts
+    from repro_torch.serve import SearchService
+
+    data = make_higgs_like(SERVICE_ROWS, seed=0)
+    train, valid = data.split((0.8, 0.2), seed=0)
+    train, mu, sd = train.standardize()
+    valid, _, _ = valid.standardize(mu, sd)
+    n_tasks = sum(len(s.configs) for s in _service_grid())
+    cache = PreparedDataCache()
+    svc = SearchService(n_executors=2, prepared_cache=cache)
+
+    def scored_once(handle, label):
+        results = list(handle.results())
+        ids = [r.task.task_id for r in results]
+        _check(len(ids) == n_tasks and len(set(ids)) == n_tasks,
+               f"{label}: {len(ids)} results for {n_tasks} tasks")
+        _check(all(r.ok and r.score is not None for r in results),
+               f"{label}: {[r.error for r in results if not r.ok][:3]}")
+        return handle.multi_model().best(valid)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        handles = {name: svc.submit_search(
+            SearchSpec(spaces=_service_grid(), n_executors=2,
+                       n_shards=2 if name == "bob" else 1),
+            train, valid, tenant=name, weight=w) for name, w in SERVICE_TENANTS.items()}
+        best = {name: scored_once(h, name) for name, h in handles.items()}
+        wall = time.perf_counter() - t0
+        # bob's per-shard entries beside alice's full copies in the one cache
+        sharded_bytes, cached_bytes = cache.sharded_resident_bytes(), cache.bytes_cached
+        _check(0 < sharded_bytes < cached_bytes,
+               f"cache: {sharded_bytes} sharded bytes of {cached_bytes}")
+        chaos = FaultPlan(seed=0, task_failure_rate=CHAOS_FAILURE_RATE).build()
+        svc.failure_hook = chaos.hook
+        t1 = time.perf_counter()
+        again = svc.submit_search(
+            SearchSpec(spaces=_service_grid(), n_executors=2, n_shards=2,
+                       max_task_retries=CHAOS_RETRIES),
+            train, valid, tenant="bob", weight=SERVICE_TENANTS["bob"])
+        chaos_best = scored_once(again, "bob under chaos")
+        chaos_wall = time.perf_counter() - t1
+        svc.failure_hook = None
+        stats = svc.stats()
+    finally:
+        svc.close()
+    counts = launch_counts()
+    _add_launches(out, counts)
+    _check(chaos.n_train_faults > 0, "chaos injected no fault")
+    _check(chaos_best.task.key() == best["bob"].task.key(),
+           f"chaos run's best {chaos_best.task.key()} != {best['bob'].task.key()}")
+    want = {"alice": (1, n_tasks), "bob": (2, 2 * n_tasks)}
+    for name, (sessions, results) in want.items():
+        ts = stats.per_tenant[name]
+        _check((ts.n_sessions, ts.n_results, ts.n_failures) == (sessions, results, 0),
+               f"{name}'s ledger: {ts.n_sessions} sessions, {ts.n_results} results, "
+               f"{ts.n_failures} failures; expected {sessions}, {results}, 0")
+    hits, misses = cache.counters()
+    per_tenant = cache.tenant_counters()
+    _check(sum(v.get("hits", 0) for v in per_tenant.values()) == hits
+           and sum(v.get("misses", 0) for v in per_tenant.values()) == misses,
+           "per-tenant cache ledgers do not sum to the cache's counters")
+    _check(counts["split_scan"] > 0 and counts["level_split"] > 0,
+           f"the service's searches launched {counts}")
+    print(f"  alice (replicated) and bob (2 shards) at once: {2 * n_tasks} tasks in "
+          f"{wall:.2f} s, each scored once; best alice {best['alice'].task.key()} auc "
+          f"{best['alice'].score:.6f}, bob {best['bob'].task.key()} auc "
+          f"{best['bob'].score:.6f}; cache {cache.n_entries} entries, {sharded_bytes} of "
+          f"{cached_bytes} bytes per-shard blocks; tenant ledgers sum to its {hits} hits / "
+          f"{misses} misses", flush=True)
+    print(f"  bob again under chaos (train-failure rate {CHAOS_FAILURE_RATE}, "
+          f"{CHAOS_RETRIES} retries): {chaos.n_train_faults} injected faults, every task "
+          f"scored once in {chaos_wall:.2f} s, the same best config; launches {counts}",
+          flush=True)
+    print("  " + stats.summary().replace("\n", "\n  "), flush=True)
+    out["service"] = dict(wall_s=wall, chaos_wall_s=chaos_wall,
+                          chaos_faults=chaos.n_train_faults, launches=counts)
+
+
+# ---------------------------------------------------------------------------
 # The LM serving path (phases 6-8)
 # ---------------------------------------------------------------------------
 
@@ -846,6 +1254,9 @@ LM_NEW_TOKENS = 32
 # product with it, exp, expm1 with its doubling, sqrt and negation, two
 # products for beta * (sigmoid * x), and the a * h + u update
 RGLRU_OPS_PER_ELEMENT = 16
+# phase 6's float32 RWKV-6 case and phase 8's layers: the error over T, in
+# windows of this many steps
+RWKV6_WINDOW = 256
 
 
 def _held(torch, what, got, want, atol, rtol) -> float:
@@ -991,6 +1402,40 @@ def _rwkv6_case(torch, gen, b, h, t, dk, dv, with_s0):
                 library_ms=None)
 
 
+def _rwkv6_f32_case(torch, gen, b, h, t, dk, dv):
+    """RWKV-6 in float32 at RWKV6-7B's serving shape: the kernel against its
+    plain version, held to STATE_TOL of the scale, with the largest
+    relative error of y in each window of RWKV6_WINDOW steps (max |err| over
+    max |plain| of the window) and of the final state, to show where over T
+    the float32 difference grows."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rwkv6 import rwkv6_cuda
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    r, k, v = randn(b, h, t, dk), randn(b, h, t, dk), randn(b, h, t, dv)
+    w = randn(b, h, t, dk) * 1.5 - 1.0
+    u = randn(h, dk) * 0.5
+    y, s = rwkv6_cuda(r, k, v, w, u)
+    y_r, s_r = ref.rwkv6_ref(r, k, v, w, u)
+    torch.cuda.synchronize()
+    label = f"B={b} H={h} T={t} Dk={dk} Dv={dv} float32"
+    y_err = _state_held(torch, f"rwkv6 {label} y", y, y_r)
+    s_err = _state_held(torch, f"rwkv6 {label} S_T", s, s_r)
+    diff, scale = (y - y_r).abs(), y_r.abs()
+    windows = [float(diff[:, :, i:i + RWKV6_WINDOW].max() / scale[:, :, i:i + RWKV6_WINDOW].max())
+               for i in range(0, t, RWKV6_WINDOW)]
+    s_rel = s_err / float(s_r.abs().max())
+    worst = int(np.argmax(windows))
+    print(f"  rwkv6 {label}: y max|err| {y_err:.3g}, S_T max|err| {s_err:.3g} (rtol "
+          f"{STATE_TOL:g} of scale); relative y error per {RWKV6_WINDOW}-step window: "
+          + ", ".join(f"{e:.2e}" for e in windows)
+          + f" (largest in steps {worst * RWKV6_WINDOW}-{(worst + 1) * RWKV6_WINDOW - 1}); "
+          f"S_T relative {s_rel:.2e}", flush=True)
+    return dict(windows=windows, state_rel=s_rel)
+
+
 def phase_lm_kernels(torch, out: dict) -> None:
     gen = torch.Generator(device="cuda").manual_seed(1)
     bf16 = torch.bfloat16
@@ -1014,13 +1459,16 @@ def phase_lm_kernels(torch, out: dict) -> None:
     out["rwkv6"] = _rwkv6_case(torch, gen, 4, 64, 4096, 64, 64, False)
     _rwkv6_case(torch, gen, 4, 64, 4096, 64, 64, True)
     _rwkv6_case(torch, gen, 4, 64, 1, 64, 64, True)
+    out["rwkv6_f32"] = _rwkv6_f32_case(torch, gen, 4, 64, 4096, 64, 64)
 
 
 def _layerwise_f32(torch, cfg32, params, batch, max_len):
     """The float32 prefill one layer at a time (see LAYER_F32_TOL). Returns
-    the largest per-layer error and, per layer, how far the freely running
-    kernel path has drifted from the plain path (both in units of that
-    layer's largest update)."""
+    each layer's error and how far the freely running kernel path has
+    drifted from the plain path (both in units of that layer's largest
+    update), and for the layer with the largest error that error per
+    window of RWKV6_WINDOW positions (same units) and the position of the
+    largest one."""
     from repro_torch.models import init_decode_state, layer_specs
     from repro_torch.models import transformer as tm
 
@@ -1028,7 +1476,7 @@ def _layerwise_f32(torch, cfg32, params, batch, max_len):
     x_ref = tm._embed(cfg32, params, tm._tokens(params, batch["tokens"]))
     x_free = x_ref
     positions = torch.arange(x_ref.shape[1], device="cuda")
-    worst, drift = 0.0, []
+    errs, drift, profile = [], [], None
     with torch.no_grad():
         for i, (spec, p, st) in enumerate(zip(layer_specs(cfg32), params.layers, state)):
             want = tm._prefill_layer(cfg32, spec, p, st, x_ref, positions, "ref")
@@ -1038,10 +1486,15 @@ def _layerwise_f32(torch, cfg32, params, batch, max_len):
             err = float((got - want).abs().max()) / scale
             _check(err <= LAYER_F32_TOL, f"float32 layer {i} ({spec.kind}): kernel path off "
                                          f"the plain path by {err:.3g} of its update")
-            worst = max(worst, err)
+            if not errs or err > max(errs):
+                diff = (got - want).abs().amax(dim=(0, 2)) / scale       # per position
+                profile = ([float(diff[j:j + RWKV6_WINDOW].max())
+                            for j in range(0, diff.shape[0], RWKV6_WINDOW)],
+                           int(diff.argmax()))
+            errs.append(err)
             drift.append(float((x_free - want).abs().max()) / scale)
             x_ref = want
-    return worst, drift
+    return errs, drift, profile
 
 
 def _profiled_serve(torch, engine, wave):
@@ -1105,7 +1558,8 @@ def phase_serve(torch, out: dict, arch: str) -> None:
 
     kinds = [s.kind for s in layer_specs(cfg)]
     per_pass = {"flash_attention": kinds.count("attn"), "rglru": kinds.count("rglru"),
-                "rwkv6": kinds.count("rwkv"), "histogram": 0, "level_split": 0}
+                "rwkv6": kinds.count("rwkv"), "histogram": 0, "level_split": 0,
+                "split_scan": 0}
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     first = engine.serve(wave())
@@ -1144,7 +1598,8 @@ def phase_serve(torch, out: dict, arch: str) -> None:
     _check(launch_counts() == {n: 2 * c for n, c in per_pass.items()},
            f"the float32 prefill launched {launch_counts()}")
     err_f32 = float((logits_k32 - logits_32).abs().max())
-    layer_err, drift = _layerwise_f32(torch, cfg32, params, batch, max_len)
+    layer_errs, drift, profile = _layerwise_f32(torch, cfg32, params, batch, max_len)
+    layer_err = max(layer_errs)
     _check(bool(torch.isfinite(logits_k).all()) and logits_k.shape == (4, cfg.vocab),
            "prefill logits malformed")
     noise = float((logits_r - logits_32).abs().max())
@@ -1164,7 +1619,8 @@ def phase_serve(torch, out: dict, arch: str) -> None:
     _check([r.output for r in second] == [r.output for r in first], "two serves differ")
     busy, shares, top = _profiled_serve(torch, engine, wave)
     print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{count_params(params) / 1e9:.2f}B {cfg.param_dtype} parameters (init {init_s:.1f} s); "
+          f"{count_params(params) / 1e9:.2f}B {cfg.param_dtype} parameters (init {init_s:.1f} s: "
+          f"drawn on the host, moved one tensor at a time); "
           f"prompts {list(LM_PROMPTS)}, {LM_NEW_TOKENS} new tokens each", flush=True)
     print(f"  prefill {st.prefill_s:.3f} s, decode {st.decode_steps} steps in "
           f"{st.decode_s:.3f} s = {st.decode_tokens_per_s:.1f} tok/s "
@@ -1177,6 +1633,12 @@ def phase_serve(torch, out: dict, arch: str) -> None:
           + ", ".join(f"{i + 1}: {drift[i]:.3g}" for i in marks)
           + f"; float32 logits kernel vs plain {err_f32:.4g} of max|logit| "
           f"{float(logits_32.abs().max()):.4g}", flush=True)
+    print("  float32 error of each layer (units of its update): "
+          + ", ".join(f"{i + 1}:{e:.2e}" for i, e in enumerate(layer_errs))
+          + f"; in layer {layer_errs.index(layer_err) + 1}, per {RWKV6_WINDOW}-position "
+          f"window: " + ", ".join(f"{e:.2e}" for e in profile[0])
+          + f" (largest at position {profile[1]} of the prompts' "
+          f"{max(LM_PROMPTS)})", flush=True)
     print(f"  launches {counts} (per prefill {per_pass}); "
           f"bf16 prefill logits kernel vs plain: "
           f"max|err| {err:.4g}, vs plain float32 {err32:.4g} (tol {tol:.4g} = "
@@ -1190,7 +1652,8 @@ def phase_serve(torch, out: dict, arch: str) -> None:
     out.setdefault("lm_launches", {}).update(
         {n: c for n, c in counts.items() if per_pass[n]})
     out[arch] = dict(prefill_s=st.prefill_s, decode_tok_s=st.decode_tokens_per_s,
-                     peak_bytes=peak, layer_err_f32=layer_err, logit_err_f32=err_f32,
+                     peak_bytes=peak, layer_err_f32=layer_err, layer_errs_f32=layer_errs,
+                     init_s=init_s, logit_err_f32=err_f32,
                      logit_err=err,
                      logit_tol=tol)
     del engine, params, first, second, logits_k, logits_r, logits_32, logits_k32
@@ -1200,7 +1663,7 @@ def phase_serve(torch, out: dict, arch: str) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
     import torch
 
@@ -1248,7 +1711,9 @@ def main() -> int:
         print("[8] RWKV6-7B served", flush=True)
         phase_serve(torch, out, "rwkv6-7b")
     for n, title, phase in ((9, "the paper's grid on HIGGS-like data", phase_paper_grid),
-                            (10, "the paper's grid on SECOM-like data", phase_secom_grid)):
+                            (10, "the paper's grid on SECOM-like data", phase_secom_grid),
+                            (11, "the row-sharded search", phase_sharded_search),
+                            (12, "the multi-tenant search service and chaos", phase_service)):
         if n in phases:
             print(f"[{n}] {title}", flush=True)
             t0 = time.perf_counter()
@@ -1256,11 +1721,14 @@ def main() -> int:
             print(f"  phase {n} took {time.perf_counter() - t0:.1f} s", flush=True)
     kernels = []
     if "level_split" in out and "launches" in out:
+        # split_scan is the level kernel's scan pass launched alone (the
+        # sharded level's scan): the scan half of the same TPU kernel
         for name, replaces in (("level_split", "src/repro/kernels/histogram.py:328"),
-                               ("histogram", "src/repro/kernels/histogram.py:134")):
+                               ("histogram", "src/repro/kernels/histogram.py:134"),
+                               ("split_scan", "src/repro/kernels/histogram.py:328")):
             kernels.append(dict(name=name, route="cuda",
                                 source="src/repro_torch/kernels/csrc/histogram.cu",
-                                replaces=replaces, launches=out["launches"][name],
+                                replaces=replaces, launches=out["launches"].get(name, 0),
                                 **out[name]))
     for name, replaces in (("flash_attention", "src/repro/kernels/flash_attention.py:115"),
                            ("rglru", "src/repro/kernels/rglru.py:75"),

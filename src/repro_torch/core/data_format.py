@@ -52,7 +52,7 @@ __all__ = [
     "ShardedPlacement",
     "shard_payload",
     "is_sharded_payload",
-    "refuse_sharded",
+    "shard_pspecs",
 ]
 
 
@@ -201,15 +201,26 @@ def format_key(fmt: str, params: Mapping[str, Any] | None = None) -> str:
 
 
 # --------------------------------------------------------------------------
-# Row-sharded placements (DESIGN.md §3.9) — not ported yet.
+# Row-sharded placements (DESIGN.md §3.9).
 # --------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class ShardedPlacement:
     """Cache-key token for a row-sharded prepared-data placement.
 
-    Kept for the API: the row-sharded data plane is not ported yet, so any
-    real sharding (``n_shards >= 2``) raises NotImplementedError."""
+    A prepared entry under this placement holds the converter's payload
+    re-partitioned into ``n_shards`` contiguous row blocks (see
+    :func:`shard_payload`); each device in the shard group is resident for
+    exactly ONE block, so the entry's byte accounting is per-shard, not
+    full-copy. Identity (hash/eq) is ``(n_shards, axis, tag)``:
+
+    * ``axis`` names the shard axis the training/eval sums run over
+      (``compat.sharded_call``);
+    * ``tag`` separates shard GROUPS that would otherwise collide — a mesh
+      pool hosting two 2-shard groups keys each group's residency apart;
+    * ``mesh`` (compare=False) optionally carries the live device mesh; it
+      never participates in cache identity.
+    """
 
     n_shards: int
     axis: str = "shards"
@@ -221,7 +232,6 @@ class ShardedPlacement:
         if self.n_shards < 2:
             raise ValueError(
                 f"ShardedPlacement needs n_shards >= 2, got {self.n_shards}")
-        raise NotImplementedError("the row-sharded data plane is not ported yet")
 
 
 def is_sharded_payload(prepared) -> bool:
@@ -229,23 +239,86 @@ def is_sharded_payload(prepared) -> bool:
     return isinstance(prepared, Mapping) and "_n_shards" in prepared
 
 
-def refuse_sharded(prepared, family: str) -> None:
-    """Raise NotImplementedError for a row-sharded payload: ``family``'s
-    sharded cores are not ported yet."""
-    if is_sharded_payload(prepared):
-        raise NotImplementedError(
-            f"the row-sharded {family} cores are not ported yet (ROADMAP Queue 1 item 9)")
+def _row_blocks(leaf, n_shards: int, rows_per_shard: int, pad: int):
+    """``leaf`` (rows, ...) zero-padded by ``pad`` rows and stacked to
+    (n_shards, rows_per_shard, ...); a tensor stays on its device."""
+    if isinstance(leaf, torch.Tensor):
+        if pad:
+            leaf = torch.cat([leaf, leaf.new_zeros((pad,) + tuple(leaf.shape[1:]))])
+        return leaf.reshape((n_shards, rows_per_shard) + tuple(leaf.shape[1:]))
+    arr = np.asarray(leaf)
+    if pad:
+        arr = np.pad(arr, [(0, pad)] + [(0, 0)] * (arr.ndim - 1))
+    return arr.reshape((n_shards, rows_per_shard) + arr.shape[1:])
 
 
 def shard_payload(prepared, n_shards: int, *, n_rows: int | None = None):
-    """Re-partition a converted payload into per-shard row blocks. Only the
-    trivial ``n_shards < 2`` (a plain copy of the mapping) is ported."""
+    """Re-partition a converted payload into stacked per-shard row blocks.
+
+    The FULL conversion runs first (so global statistics — quantile edges,
+    label means — are identical to the unsharded entry), then every array
+    or tensor leaf whose leading dimension equals the row count is split
+    into ``n_shards`` contiguous blocks of ``ceil(rows / n_shards)`` rows
+    (zero-padded tail) and stacked to ``(n_shards, rows_per_shard, ...)``,
+    on the leaf's device. Other leaves (bin edges, scalars) are kept as
+    they are. Adds:
+
+    * ``"_shard_valid"``: (n_shards, rows_per_shard) bool — False on pad
+      rows, the mask every sharded core applies before reducing;
+    * ``"_n_shards"`` / ``"_n_rows"``: ints, the markers the estimators and
+      :func:`payload_nbytes` key off.
+
+    Shard ``s`` owns global rows ``[s * rows_per_shard, (s+1) *
+    rows_per_shard)``: concatenating the blocks in shard order gives the
+    original row order back.
+    """
     if not isinstance(prepared, Mapping):
         raise TypeError("shard_payload expects a converted payload mapping, "
                         f"got {type(prepared).__name__}")
+    if is_sharded_payload(prepared):
+        raise ValueError("payload is already sharded")
     if n_shards < 2:
         return dict(prepared)
-    raise NotImplementedError("the row-sharded data plane is not ported yet")
+    if n_rows is None:
+        for probe in ("y", "x", "bins"):
+            leaf = prepared.get(probe)
+            if leaf is not None and getattr(leaf, "ndim", 0) >= 1:
+                n_rows = int(leaf.shape[0])
+                break
+        else:
+            raise ValueError("cannot infer the payload's row count; pass n_rows=")
+    rows_per_shard = -(-n_rows // n_shards)
+    pad = n_shards * rows_per_shard - n_rows
+    out: dict[str, Any] = {}
+    device = None
+    for key, leaf in prepared.items():
+        if getattr(leaf, "ndim", 0) >= 1 and int(leaf.shape[0]) == n_rows:
+            out[key] = _row_blocks(leaf, n_shards, rows_per_shard, pad)
+            if device is None and isinstance(leaf, torch.Tensor):
+                device = leaf.device
+        else:
+            out[key] = leaf
+    valid = torch.arange(n_shards * rows_per_shard, device=device) < n_rows
+    out["_shard_valid"] = valid.reshape(n_shards, rows_per_shard)
+    out["_n_shards"] = int(n_shards)
+    out["_n_rows"] = int(n_rows)
+    return out
+
+
+def shard_pspecs(prepared, axis: str = "shards"):
+    """Partition-spec tree for a sharded payload: leaves stacked on the
+    shard axis get ``P(axis)``, the others (and the non-array markers)
+    ``P()``, so the spec tree stays leaf-aligned with the payload. With
+    ``{axis: n_shards}`` axis sizes, ``distributed.sharding.bytes_per_device``
+    reports per-shard residency from it."""
+    from repro_torch.distributed.sharding import P
+
+    if not is_sharded_payload(prepared):
+        raise ValueError("shard_pspecs expects a shard_payload() payload")
+    s = int(prepared["_n_shards"])
+    return {key: P(axis) if getattr(leaf, "ndim", 0) >= 1 and int(leaf.shape[0]) == s
+            else P()
+            for key, leaf in prepared.items()}
 
 
 # --------------------------------------------------------------------------
@@ -255,8 +328,22 @@ def shard_payload(prepared, n_shards: int, *, n_rows: int | None = None):
 def payload_nbytes(obj) -> int:
     """Best-effort byte size of a converted payload: sum of ``.nbytes`` over
     array and tensor leaves in (possibly nested) dict/tuple/list
-    containers."""
+    containers.
+
+    Sharded payloads (:func:`shard_payload`) report PER-SHARD residency:
+    leaves stacked on the shard axis count one block (``nbytes / n_shards``),
+    the others in full — the cache models what one device of the shard
+    group holds, not the stack."""
     if isinstance(obj, Mapping):
+        s = obj.get("_n_shards")
+        if isinstance(s, int) and s > 1:
+            total = 0
+            for leaf in obj.values():
+                b = payload_nbytes(leaf)
+                if getattr(leaf, "ndim", 0) >= 1 and int(leaf.shape[0]) == s:
+                    b = -(-b // s)
+                total += b
+            return total
         return sum(payload_nbytes(v) for v in obj.values())
     if isinstance(obj, (tuple, list)):
         return sum(payload_nbytes(v) for v in obj)
@@ -436,6 +523,17 @@ class PreparedDataCache:
         total = hits + misses
         return hits / total if total else 0.0
 
+    def sharded_resident_bytes(self) -> int:
+        """Per-shard resident bytes across every ready entry keyed by a
+        :class:`ShardedPlacement` (entry ``nbytes`` is already per-shard —
+        see :func:`payload_nbytes`): what ``SearchStats.shard_residency_bytes``
+        reports (DESIGN.md §3.9)."""
+        with self._lock:
+            return sum(
+                e.nbytes for k, e in self._entries.items()
+                if e.ready.is_set() and isinstance(k, tuple)
+                and any(isinstance(part, ShardedPlacement) for part in k))
+
     def clear(self) -> None:
         with self._lock:
             self._entries.clear()
@@ -461,8 +559,10 @@ def prepare_key(data: DenseMatrix, fmt: str,
                 params: Mapping[str, Any] | None = None,
                 placement: Hashable = None, device=None) -> tuple:
     """The full cache key for one prepared variant. ``placement`` keys
-    residency per executor placement (None = the process default), and the
-    resolved ``device`` (see :func:`repro_torch.device.default_device`) is
+    residency per executor placement (None = the process default; a mesh
+    pool's per-slice token; a :class:`ShardedPlacement` for a row-sharded
+    partition whose entry holds per-shard blocks), and the resolved
+    ``device`` (see :func:`repro_torch.device.default_device`) is
     part of the key, so CPU and CUDA payloads of one dataset never
     collide."""
     return (data.fingerprint(), format_key(fmt, params), placement,
@@ -477,13 +577,23 @@ def prepare_cached(data: DenseMatrix, fmt: str,
     """Convert through the prepared-data cache onto ``device`` (default:
     :func:`~repro_torch.device.default_device`); returns
     ``(prepared, convert_seconds, built)`` — see
-    :meth:`PreparedDataCache.get`."""
+    :meth:`PreparedDataCache.get`.
+
+    Under a :class:`ShardedPlacement` the builder converts the FULL dataset
+    first (global statistics identical to the replicated entry) and then
+    row-shards the payload (:func:`shard_payload`) — still exactly-once per
+    key through the in-flight de-dup, with per-shard byte accounting."""
     cache = cache if cache is not None else prepared_data_cache()
     dev = default_device(device)
     key = prepare_key(data, fmt, params, placement, dev)
 
-    return cache.get(
-        key, lambda: convert(data, fmt, **dict(params or {}), device=dev))
+    def build():
+        prepared = convert(data, fmt, **dict(params or {}), device=dev)
+        if isinstance(placement, ShardedPlacement):
+            prepared = shard_payload(prepared, placement.n_shards)
+        return prepared
+
+    return cache.get(key, build)
 
 
 def _on(a: np.ndarray, device) -> torch.Tensor:

@@ -32,9 +32,9 @@ from typing import Hashable, Sequence
 
 import numpy as np
 
-from repro_torch.core.data_format import DenseMatrix, prepare_cached
+from repro_torch.core.data_format import DenseMatrix, is_sharded_payload, prepare_cached
 from repro_torch.core.fusion import CompileCache
-from repro_torch.core.results import METRICS
+from repro_torch.core.results import METRICS, sharded_metric
 
 __all__ = [
     "EvalPlan",
@@ -128,12 +128,30 @@ def evaluate_models(
             plan.data, getattr(est, "eval_format", "eval_dense"),
             cache=prepared_cache, placement=placement)
         x = entry["x"]
+        sharded = is_sharded_payload(entry)
+        if sharded:
+            # prediction is row-local: score the flattened (S·Rs, F) block
+            # view, then reduce per-shard metric PARTIALS (§3.9) — no
+            # gathered prediction vector for decomposable metrics
+            n_shards, rows_per_shard = int(entry["_n_shards"]), x.shape[1]
+            x = x.reshape(n_shards * rows_per_shard, *x.shape[2:])
         if len(models) > 1:
             probs = type(models[0]).predict_proba_batched(models, x, cache=cache)
         else:
             probs = [models[0].predict_proba_device(x, cache=cache)]
-        metric_fn = METRICS[plan.metric]
-        scores = [float(metric_fn(plan.data.y, np.asarray(p))) for p in probs]
+        y = plan.data.y
+        if sharded:
+            n_rows = int(entry["_n_rows"])
+            valid = entry["_shard_valid"].cpu().numpy()
+            y_blocks = np.zeros(valid.shape, np.asarray(y).dtype)
+            y_blocks.reshape(-1)[:n_rows] = np.asarray(y).reshape(-1)
+            scores: list[float | None] = [
+                sharded_metric(plan.metric, y_blocks,
+                               np.asarray(p).reshape(valid.shape), valid, n_rows)
+                for p in probs]
+        else:
+            metric_fn = METRICS[plan.metric]
+            scores = [float(metric_fn(y, np.asarray(p))) for p in probs]
     except Exception:
         return [None] * len(models), 0.0
     total = time.perf_counter() - t0

@@ -1,13 +1,20 @@
 """Executors: where training tasks actually run (paper §III-A).
 
-:class:`LocalExecutorPool` implements the
-:class:`repro_torch.core.backend.ExecutorBackend` protocol —
-``submit(assignment, data)`` yields ``TaskResult``s as tasks complete: N
-worker threads, each the analogue of one Spark executor in the paper, all
-launching on the process's device. It supports static plans
-(LPT/random/round-robin) and dynamic pull-queues, executor-failure recovery,
-and straggler speculation. (The mesh-slice pool of the JAX package is not
-ported yet.)
+Two pools implement the one :class:`repro_torch.core.backend.ExecutorBackend`
+protocol — ``submit(assignment, data)`` yields ``TaskResult``s as tasks
+complete:
+
+* :class:`LocalExecutorPool` — N worker threads, each the analogue of one
+  Spark executor in the paper, all launching on the process's device.
+  Supports static plans (LPT/random/round-robin) and dynamic pull-queues,
+  executor-failure recovery, and straggler speculation.
+
+* :class:`MeshSliceExecutorPool` — a device mesh
+  (:mod:`repro_torch.launch.mesh`) partitioned into slices, each slice one
+  executor. It shares the thread pool's scheduling semantics: WAL
+  de-dup/resume, per-task error capture, load-balanced queues, and
+  ExecutorFailure re-queue onto surviving slices; with ``n_shards > 1`` it
+  schedules on shard groups of slices (DESIGN.md §3.9).
 
 The uniform→native data-format conversion happens HERE (executor-side) —
 never in the Driver (paper §III-B) — and is resolved through the process-wide
@@ -24,10 +31,14 @@ prepared-data cache — so results stream back already ranked-able
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 import queue as _queue
 import threading
 import time
-from typing import Callable, Iterator
+from typing import Callable, Iterator, Sequence
+
+import torch
 
 from repro_torch.core.data_format import (
     DenseMatrix,
@@ -37,6 +48,7 @@ from repro_torch.core.data_format import (
 )
 from repro_torch.core.evaluation import EvalPlan, evaluate_models
 from repro_torch.core.fault import (
+    AllExecutorsLost,
     ExecutorFailure,
     RetryLedger,
     SearchWAL,
@@ -54,7 +66,8 @@ from repro_torch.core.interface import (
 )
 from repro_torch.core.scheduler import Assignment
 
-__all__ = ["LocalExecutorPool"]
+__all__ = ["LocalExecutorPool", "MeshSliceExecutorPool", "ShardGroup",
+           "make_slices"]
 
 _DYNAMIC_POLICIES = ("dynamic", "lpt_dynamic")
 
@@ -190,8 +203,12 @@ class LocalExecutorPool:
         n_shards: int = 1,
     ):
         self._n_executors = n_executors
-        #: sharded data plane (DESIGN.md §3.9): ``n_shards > 1`` asks for a
-        #: ShardedPlacement token, which raises until that plane is ported
+        #: sharded data plane (DESIGN.md §3.9): with ``n_shards > 1`` every
+        #: conversion resolves under ONE ShardedPlacement token — workers
+        #: train on row-sharded prepared entries (per-shard residency in
+        #: the cache accounting) and the eval plane reduces shard partials.
+        #: On the process's one device the shards are stacked
+        #: (``compat.sharded_call``)
         self._placement_token = (
             ShardedPlacement(int(n_shards)) if int(n_shards) > 1 else None)
         self.wal = wal or SearchWAL(None)
@@ -768,6 +785,547 @@ class LocalExecutorPool:
         return got
 
     def run(self, assignment: Assignment, data: DenseMatrix,
+            validate: EvalPlan | None = None) -> list[TaskResult]:
+        """Blocking convenience: drain :meth:`submit` into a list."""
+        return list(self.submit(assignment, data, validate))
+
+    @property
+    def dead_executors(self) -> set[int]:
+        return set(self._dead)
+
+
+# --------------------------------------------------------------------------
+# Mesh-slice executors (DESIGN.md §3.1's mesh half).
+# --------------------------------------------------------------------------
+
+#: process-unique pool ids for prepared-data placement tokens — id(slice)
+#: would be recyclable after a pool is garbage-collected while its entries
+#: outlive it in the process-wide cache, producing false residency hits
+_POOL_IDS = itertools.count()
+
+def make_slices(mesh, n_slices: int, axis: str = "data"):
+    """Partition ``mesh`` (a :class:`repro_torch.launch.mesh.DeviceMesh`)
+    into ``n_slices`` submeshes along ``axis``.
+
+    Each slice keeps every other axis intact, so a task placed on a slice
+    could still spread over its devices. Returns a list of DeviceMesh. On
+    one card every device of every slice is the same ``cuda:0``: the slices
+    are logical executors sharing it.
+    """
+    from repro_torch.launch.mesh import DeviceMesh
+
+    axis_idx = mesh.axis_names.index(axis)
+    size = mesh.devices.shape[axis_idx]
+    if size % n_slices != 0:
+        raise ValueError(f"axis {axis!r} of size {size} not divisible into {n_slices} slices")
+    per = size // n_slices
+    slices = []
+    for s in range(n_slices):
+        sl = [slice(None)] * mesh.devices.ndim
+        sl[axis_idx] = slice(s * per, (s + 1) * per)
+        slices.append(DeviceMesh(mesh.devices[tuple(sl)], mesh.axis_names))
+    return slices
+
+
+class ShardGroup:
+    """One §3.9 scheduling unit spanning ``n_shards`` mesh slices.
+
+    When a :class:`MeshSliceExecutorPool` runs with ``n_shards > 1`` its
+    slices are bundled into consecutive groups and the GROUP — not the
+    slice — is what the scheduler places tasks on: one queue, one executor
+    id, one failure domain, one :class:`ShardedPlacement` cache token per
+    group. ``slices`` holds the member slice handles (the submeshes whose
+    devices hold the group's row blocks); ``index`` is the group's position
+    in the pool, which keys its placement tag. With one device the shards
+    of a group are stacked on it (``compat.sharded_call``).
+    """
+
+    __slots__ = ("slices", "index")
+
+    def __init__(self, slices, index: int):
+        self.slices = tuple(slices)
+        self.index = int(index)
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return f"ShardGroup(index={self.index}, n_slices={len(self.slices)})"
+
+
+def _on_slice(sl):
+    """A context that makes the slice's first device the current CUDA device
+    while a task runs on it; a stand-in handle or a CPU mesh changes nothing."""
+    if isinstance(sl, ShardGroup):
+        sl = sl.slices[0]
+    dev = getattr(sl, "device", None)
+    if isinstance(dev, torch.device) and dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
+class MeshSliceExecutorPool:
+    """Executors = submesh slices of one device mesh
+    (:class:`repro_torch.launch.mesh.DeviceMesh`).
+
+    ``task_runner(task, slice_mesh, data) -> (model-payload, seconds)`` is
+    supplied by a custom substrate (the JAX package's LM search); this
+    pool owns only
+    placement, ordering, failure re-queue and WAL bookkeeping — the same
+    scheduling semantics as LocalExecutorPool, with slices instead of threads.
+
+    With ``task_runner=None`` the pool runs ESTIMATOR-backed tasks itself
+    (the tabular workload on mesh slices): conversion resolves through the
+    prepared-data cache with a PER-SLICE placement token, so each slice
+    prepares a (dataset, format, params) variant once and every later task
+    placed on that slice reuses the slice-resident copy — the §3.3 plane's
+    mesh half. A slice that is a DeviceMesh runs its tasks with its first
+    device as the current CUDA device; on one card every slice is
+    ``cuda:0``, and the slices are logical executors that share it, one
+    task at a time (the pool is a serial generator).
+
+    Fused units (:class:`repro_torch.core.fusion.FusedBatch`) are run as one
+    program on their slice: a custom runner is called with the BATCH and must
+    return ``(payload_per_member, total_seconds)``; the pool unbatches into
+    per-member results with amortized seconds. The estimator-backed default
+    handles batches via ``Estimator.train_batched`` directly.
+
+    Pass ``slices=[...]`` to supply pre-built (or stand-in) slice handles
+    directly instead of partitioning a mesh — tests and custom partitioners
+    use this to exercise the pool without real multi-device state.
+
+    With ``n_shards > 1`` (§3.9) the pool bundles consecutive slices into
+    :class:`ShardGroup` units of that size and SCHEDULES ON GROUPS: a
+    sharded placement is one unit spanning its shard group — one queue,
+    one executor id, one failure domain — and ``_placement`` hands every
+    task a per-group :class:`ShardedPlacement` token, so prepared data for
+    the group is built once as per-shard row blocks and ``n_executors``
+    reports the group count, not the raw slice count.
+    """
+
+    def __init__(
+        self,
+        mesh=None,
+        n_slices: int | None = None,
+        task_runner: Callable[[TrainTask, object, object], tuple[object, float]] | None = None,
+        wal: SearchWAL | None = None,
+        slice_axis: str = "data",
+        *,
+        failure_hook: Callable[[int, TrainTask], None] | None = None,
+        slices: Sequence[object] | None = None,
+        driver_slice: object | None = None,
+        on_result: Callable[[TaskResult], None] | None = None,
+        prepared_cache: PreparedDataCache | None = None,
+        n_shards: int = 1,
+        max_task_retries: int = 0,
+        retry_backoff: float = 0.05,
+        poison_threshold: int | None = 3,
+        sleep: Callable[[float], None] = time.sleep,
+    ):
+        if slices is not None:
+            self.slices = list(slices)
+        else:
+            if mesh is None or n_slices is None:
+                raise ValueError("provide either a mesh + n_slices or explicit slices=")
+            self.slices = make_slices(mesh, n_slices, axis=slice_axis)
+        self.n_shards = int(n_shards)
+        if self.n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        if self.n_shards > 1:
+            if len(self.slices) % self.n_shards:
+                raise ValueError(
+                    f"{len(self.slices)} slices cannot form shard groups of "
+                    f"{self.n_shards}")
+            self.slices = [
+                ShardGroup(self.slices[g * self.n_shards:
+                                       (g + 1) * self.n_shards], g)
+                for g in range(len(self.slices) // self.n_shards)]
+        #: None = the estimator-backed default (prepared-data plane, §3.3)
+        self.task_runner = task_runner
+        #: defaults to a PER-POOL cache, unlike the thread pool's process-wide
+        #: one: placement tokens make cross-pool sharing impossible anyway,
+        #: and a pool-owned cache lets the slices' device-resident copies be
+        #: reclaimed with the pool instead of pinning the global cache forever
+        self.prepared_cache = (prepared_cache if prepared_cache is not None
+                               else PreparedDataCache())
+        self._pool_id = next(_POOL_IDS)
+        self.wal = wal or SearchWAL(None)
+        self.failure_hook = failure_hook
+        # where stranded tasks run when every slice is lost; defaults to
+        # slice 0's handle (fine on one host where slices are logical; on
+        # several, pass a driver-local mesh that outlives the slices)
+        self.driver_slice = driver_slice if driver_slice is not None else self.slices[0]
+        #: same contract as LocalExecutorPool.on_result: every result, as it
+        #: lands, observer exceptions swallowed (CostModel feedback hook)
+        self.on_result = on_result
+        self._dead: set[int] = set()
+        self._stragglers: list[TaskResult] = []
+        #: per-task attempt/taint bookkeeping, POOL-lifetime (§3.7) — the
+        #: same ledger semantics as LocalExecutorPool
+        self._retry = RetryLedger(max_task_retries=max_task_retries,
+                                  retry_backoff=retry_backoff,
+                                  poison_threshold=poison_threshold,
+                                  sleep=sleep)
+        #: retriable failures collected by ``_execute`` for the current
+        #: ``submit`` to re-queue (the pool is a serial generator, so the
+        #: buffer needs no lock)
+        self._pending_retry: list[TrainTask] = []
+
+    def _emit(self, res: TaskResult) -> TaskResult:
+        if self.on_result is not None:
+            try:
+                self.on_result(res)
+            except Exception:
+                pass
+        return res
+
+    @property
+    def n_executors(self) -> int:
+        return len(self.slices)
+
+    def _queues(self, assignment: Assignment) -> list[list[TrainTask]]:
+        if assignment.policy in _DYNAMIC_POLICIES:
+            # single-host simulation of the pull queue: longest-first tasks go
+            # to the least-loaded slice, so slice loads stay balanced.
+            all_tasks = [t for t in assignment.all_tasks() if not self.wal.is_done(t.task_id)]
+            queues: list[list[TrainTask]] = [[] for _ in self.slices]
+            loads = [0.0] * len(self.slices)
+            for t in all_tasks:
+                i = loads.index(min(loads))
+                queues[i].append(t)
+                loads[i] += t.cost or 1.0
+            return queues
+        return [list(q) for q in assignment.plan]
+
+    def _placement(self, sl):
+        """Per-slice cache token: (process-unique pool id, slice index), so
+        tasks on one slice share its resident prepared data, different
+        slices each hold their own copy, and — when a caller INJECTS a
+        shared ``prepared_cache`` across pools — a later pool can never
+        collide with a dead pool's entries (an ``id()``-based token could
+        be recycled). The driver fallback reuses its handle's entry when it
+        is one of the slices — by default it IS slice 0.
+
+        With ``n_shards > 1`` the scheduling units are :class:`ShardGroup`
+        handles, and the token is a :class:`ShardedPlacement` tagged by
+        (pool, group) — the §3.9 key under which the group's prepared data
+        is built ONCE as per-shard row blocks and every family's sharded
+        training/eval path dispatches."""
+        idx = -1   # external driver_slice handle
+        for i, s in enumerate(self.slices):
+            if s is sl:
+                idx = i
+                break
+        if self.n_shards > 1:
+            return ShardedPlacement(
+                self.n_shards, tag=("slice-group", self._pool_id, idx))
+        return ("slice", self._pool_id, idx)
+
+    def prepare_placements(self) -> list:
+        """Placement tokens this pool converts under: one per slice for the
+        estimator-backed default runner; a custom ``task_runner`` owns its
+        own data handling, so the pool reports none (and the Session then
+        skips conversion charging entirely)."""
+        if self.task_runner is not None:
+            return []
+        return [self._placement(sl) for sl in self.slices]
+
+    def _run_one(self, eid: int, task: TrainTask, sl, data,
+                 validate: EvalPlan | None = None) -> TaskResult:
+        """One placed task; task-level errors become TaskResult.error,
+        ExecutorFailure propagates (the slice is lost). The estimator-backed
+        default scores the model ON ITS SLICE (§3.4) — eval data resolves
+        through the prepared cache under the slice's placement token, so
+        each slice holds its own resident eval copy; a custom
+        ``task_runner`` owns its payloads, so scoring is skipped."""
+        conv = 0.0
+        score, eval_s = None, 0.0
+        rstate = None
+        try:
+            if self.failure_hook is not None:
+                self.failure_hook(eid, task)  # may raise ExecutorFailure
+            if self.task_runner is not None:
+                model, secs = self.task_runner(task, sl, data)
+            else:
+                est, model, secs, conv, rstate = _train_solo(
+                    task, data, cache=self.prepared_cache,
+                    placement=self._placement(sl))
+                score, eval_s = _score_solo(est, model, validate,
+                                            self.prepared_cache,
+                                            placement=self._placement(sl))
+        except ExecutorFailure:
+            raise
+        except Exception as e:
+            return TaskResult(task=task, model=None, train_seconds=0.0, executor_id=eid, error=repr(e))
+        self.wal.record(WALRecord(task_id=task.task_id, key=task.key(), seconds=secs,
+                                  executor_id=eid, score=score,
+                                  convert_seconds=conv, eval_seconds=eval_s))
+        if rstate is not None:
+            self.wal.record_resume(task.task_id, rstate)
+        return TaskResult(task=task, model=model, train_seconds=secs,
+                          executor_id=eid, convert_seconds=conv,
+                          score=score, eval_seconds=eval_s,
+                          resume_state=rstate)
+
+    def _run_fused(self, eid: int, unit: FusedBatch, sl, data,
+                   validate: EvalPlan | None = None,
+                   run_hook: bool = True) -> list[TaskResult]:
+        """One fused unit as ONE placed program: the runner receives the
+        batch and returns (payload per member, total seconds); results are
+        unbatched with amortized per-member seconds. The estimator-backed
+        default also scores the whole model stack on its slice (one batched
+        predict call, §3.4). A batch-level exception is BISECTED (§3.7):
+        the batch splits at its bucket boundaries and each piece re-runs,
+        degrading to solo member runs, so good members are salvaged and
+        only the culprit carries the error. ExecutorFailure propagates."""
+        members = [m for m in unit.tasks if not self.wal.is_done(m.task_id)]
+        if not members:
+            return []
+        sub = unit.restrict({m.task_id for m in members})
+        if run_hook and self.failure_hook is not None:
+            try:
+                self.failure_hook(eid, unit)  # may raise ExecutorFailure
+            except ExecutorFailure:
+                raise
+            except Exception as e:
+                # injected batch-level failure: every pending member fails
+                # this attempt; _execute's retry filter re-queues them SOLO
+                return [TaskResult(task=m, model=None, train_seconds=0.0,
+                                   executor_id=eid, error=repr(e),
+                                   batch_size=len(members)) for m in members]
+        if self.task_runner is None:
+            # estimator-backed: the shared fused machinery (including §3.7
+            # bisection); journal successes inline, as _run_one does
+            results = _run_fused_unit(sub, data, eid,
+                                      cache=self.prepared_cache,
+                                      placement=self._placement(sl),
+                                      validate=validate)
+            for res in results:
+                if res.ok:
+                    self.wal.record(WALRecord(
+                        task_id=res.task.task_id, key=res.task.key(),
+                        seconds=res.train_seconds, executor_id=eid,
+                        score=res.score,
+                        convert_seconds=res.convert_seconds,
+                        eval_seconds=res.eval_seconds))
+                    if res.resume_state is not None:
+                        self.wal.record_resume(res.task.task_id,
+                                               res.resume_state)
+            return results
+        try:
+            payloads, total = self.task_runner(sub, sl, data)
+        except ExecutorFailure:
+            raise
+        except Exception as e:
+            if len(members) == 1:
+                return [TaskResult(task=members[0], model=None,
+                                   train_seconds=0.0, executor_id=eid,
+                                   error=repr(e))]
+            pieces = sub.split_at_buckets()
+            if len(pieces) > 1:
+                out: list[TaskResult] = []
+                for piece in pieces:
+                    out.extend(self._run_fused(eid, piece, sl, data,
+                                               validate, run_hook=False))
+                return out
+            # single structural bucket: singleton machinery — each member
+            # runs solo so only the culprit carries the error
+            return [self._run_one(eid, m, sl, data, validate)
+                    for m in sub.singletons()]
+        per = total / len(members)
+        results = []
+        for m, payload in zip(members, payloads):
+            self.wal.record(WALRecord(task_id=m.task_id, key=m.key(),
+                                      seconds=per, executor_id=eid,
+                                      score=None))
+            results.append(TaskResult(task=m, model=payload, train_seconds=per,
+                                      executor_id=eid, batch_size=len(members)))
+        return results
+
+    def _run_unit(self, eid: int, task, sl, data,
+                  validate: EvalPlan | None) -> tuple[list[TaskResult], dict]:
+        """The raw results of one scheduled unit, and each fused member's
+        solo re-queue form by task id."""
+        solo: dict[int, TrainTask] = {}
+        if isinstance(task, FusedBatch):
+            raw = self._run_fused(eid, task, sl, data, validate)
+            solo = {task.tasks[i].task_id: task.unfused_task(i)
+                    for i in range(len(task.tasks))}
+        elif self.wal.is_done(task.task_id):
+            raw = []
+        elif self._retry.quarantined(task.task_id):
+            raw = [TaskResult(
+                task=task, model=None, train_seconds=0.0, executor_id=eid,
+                error=f"quarantined after {self._retry.taints_of(task.task_id)}"
+                      " executor deaths while claimed (poison task)",
+                quarantined=True)]
+        else:
+            raw = [self._run_one(eid, task, sl, data, validate)]
+        return raw, solo
+
+    def _execute(self, eid: int, task, sl, data,
+                 validate: EvalPlan | None = None) -> list[TaskResult]:
+        """Run one scheduled unit (task or fused batch); every produced
+        result is emitted to ``on_result`` HERE, the moment it exists — so
+        even results a cancelled stream never surfaces feed the observers.
+
+        Retriable failures (§3.7) are filtered OUT of the returned batch
+        and parked on ``_pending_retry`` — failed fused members re-queue as
+        solo tasks (pre-amortization cost restored) — for ``submit`` to
+        re-dispatch with backoff already paid.
+        """
+        with _on_slice(sl):
+            raw, solo = self._run_unit(eid, task, sl, data, validate)
+        results = []
+        for res in raw:
+            if (not res.ok and not res.quarantined
+                    and self._retry.should_retry(res.task.task_id)):
+                self._retry.wait(res.task.task_id)
+                self._pending_retry.append(
+                    solo.get(res.task.task_id, res.task))
+                continue
+            self._retry.stamp(res)
+            results.append(res)
+        for res in results:
+            self._emit(res)
+        return results
+
+    def _deliver(self, batch: Sequence[TaskResult]):
+        """Yield each result; if the consumer closes the stream mid-batch,
+        park the not-yet-surfaced remainder for :meth:`drain_stragglers` —
+        they are finished and WAL-journalled, and must not be lost."""
+        for j, res in enumerate(batch):
+            try:
+                yield res
+            except GeneratorExit:
+                self._stragglers.extend(batch[j + 1:])
+                raise
+
+    def drain_stragglers(self) -> list[TaskResult]:
+        """Results completed (and journalled) during an early ``submit``
+        cancellation — with fused batches a close can land mid-unbatching,
+        leaving finished members unseen. The Session replan loop collects
+        these; the buffer is cleared on read."""
+        got, self._stragglers = self._stragglers, []
+        return got
+
+    def _taint_claimed(self, eid: int, unit):
+        """The slice died while running ``unit`` (§3.7): taint it. Returns
+        ``(quarantine results to surface, tasks to re-queue)`` — a fused
+        unit re-queues as solo singletons so the poison member isolates
+        instead of re-killing whole batches; a task past
+        ``poison_threshold`` deaths surfaces as a terminal quarantine
+        error instead of being handed to the next victim."""
+        if isinstance(unit, FusedBatch):
+            qres: list[TaskResult] = []
+            requeue: list[TrainTask] = []
+            for m in unit.singletons():
+                if self.wal.is_done(m.task_id):
+                    continue
+                qr, rq = self._taint_claimed(eid, m)
+                qres.extend(qr)
+                requeue.extend(rq)
+            return qres, requeue
+        n = self._retry.taint(unit.task_id)
+        if self._retry.quarantined(unit.task_id):
+            res = TaskResult(
+                task=unit, model=None, train_seconds=0.0, executor_id=eid,
+                error=f"quarantined after {n} executor deaths while "
+                      "claimed (poison task)",
+                quarantined=True)
+            self._retry.stamp(res)
+            self._emit(res)
+            return [res], []
+        return [], [unit]
+
+    def submit(self, assignment: Assignment, data,
+               validate: EvalPlan | None = None) -> Iterator[TaskResult]:
+        """Execute the plan slice by slice, yielding each result as it lands.
+
+        ``validate`` turns on slice-side scoring (§3.4) for the estimator-
+        backed default runner: each slice evaluates the models it trained
+        against its own resident copy of the eval data (per-placement cache
+        entries). A custom ``task_runner`` owns its payloads — scoring is
+        skipped and results stream exactly as before.
+
+        A slice lost to :class:`ExecutorFailure` has its remaining queue
+        re-distributed over the surviving slices; with no survivors the
+        driver runs stranded tasks inline (executor_id=-1), matching
+        LocalExecutorPool's recovery semantics.
+        """
+        self._stragglers = []  # per-submit buffer (see drain_stragglers)
+        self._pending_retry = []
+        queues = self._queues(assignment)
+        alive = set(range(len(self.slices)))
+        stranded: list[TrainTask] = []
+        for eid, q in enumerate(queues):
+            if eid >= len(self.slices):
+                # a plan with more queues than slices (a replan built for a
+                # bigger pool) must not silently drop the tail: strand it
+                # for the re-queue loop instead of vanishing
+                stranded.extend(q)
+                continue
+            sl = self.slices[eid]
+            for i, task in enumerate(q):
+                try:
+                    results = self._execute(eid, task, sl, data, validate)
+                except ExecutorFailure:
+                    self._dead.add(eid)
+                    alive.discard(eid)
+                    qres, rq = self._taint_claimed(eid, task)
+                    stranded.extend(rq)
+                    stranded.extend(q[i + 1:])
+                    yield from self._deliver(qres)
+                    break
+                yield from self._deliver(results)
+        # failure re-queue: surviving slices absorb dead slices' work (and
+        # every retriable failure _execute parked on _pending_retry)
+        while True:
+            stranded.extend(self._pending_retry)
+            self._pending_retry = []
+            pending = [t for t in stranded
+                       if isinstance(t, FusedBatch) or not self.wal.is_done(t.task_id)]
+            stranded = []
+            if not pending:
+                break
+            if not alive:
+                for task in pending:  # driver as executor of last resort
+                    try:
+                        results = self._execute(-1, task, self.driver_slice,
+                                                data, validate)
+                    except ExecutorFailure as e:
+                        # every executor AND the driver-inline fallback are
+                        # gone: no failure semantics left to escalate to, so
+                        # the stranded tasks surface as terminal errors —
+                        # they must never vanish
+                        err = AllExecutorsLost(
+                            f"all executors lost; driver-inline fallback "
+                            f"died too: {e!r}")
+                        members = task.tasks if isinstance(task, FusedBatch) else [task]
+                        results = [TaskResult(task=m, model=None, train_seconds=0.0,
+                                              executor_id=-1, error=repr(err))
+                                   for m in members
+                                   if not self.wal.is_done(m.task_id)]
+                        for res in results:
+                            self._retry.stamp(res)
+                            self._emit(res)
+                    yield from self._deliver(results)
+                continue
+            for idx, task in enumerate(pending):
+                if not alive:  # last survivor died mid-re-queue
+                    stranded.extend(pending[idx:])
+                    break
+                eid = sorted(alive)[idx % len(alive)]
+                try:
+                    results = self._execute(eid, task, self.slices[eid], data,
+                                            validate)
+                except ExecutorFailure:
+                    self._dead.add(eid)
+                    alive.discard(eid)
+                    qres, rq = self._taint_claimed(eid, task)
+                    stranded.extend(rq)  # retry on the next survivor
+                    yield from self._deliver(qres)
+                    continue
+                yield from self._deliver(results)
+
+    def run(self, assignment: Assignment, data,
             validate: EvalPlan | None = None) -> list[TaskResult]:
         """Blocking convenience: drain :meth:`submit` into a list."""
         return list(self.submit(assignment, data, validate))

@@ -447,7 +447,17 @@ def _prepare_for(est: Estimator, raw: DenseMatrix, params: Mapping[str, Any],
     cache = cache if cache is not None else prepared_data_cache()
     key = prepared_cache_key(est, raw, params, placement)
 
-    prepared, seconds, _ = cache.get(key, lambda: est.prepare(raw, params))
+    def build():
+        from repro_torch.core.data_format import ShardedPlacement, shard_payload
+
+        prepared = est.prepare(raw, params)
+        if isinstance(placement, ShardedPlacement):
+            # row-shard AFTER the full conversion so global statistics
+            # (quantile edges, label priors) match the unsharded entry
+            prepared = shard_payload(prepared, placement.n_shards)
+        return prepared
+
+    prepared, seconds, _ = cache.get(key, build)
     return prepared, seconds, cache, key
 
 

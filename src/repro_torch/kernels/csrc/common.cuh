@@ -60,6 +60,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Largest dynamic shared memory a block may opt into on the current device
+// (0 if it cannot be read). A kernel launched from several threads at shapes
+// that need different amounts opts into all of it once, never into one
+// launch's own need: another thread could lower that limit between its set
+// and this thread's launch (CUDA error 1, invalid argument).
+inline int device_smem_optin() {
+  int dev = 0, v = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return 0;
+  return v;
+}
+
 // A kernel of a source file, for the *_kernel_info functions.
 struct KernelRef {
   const char* name;

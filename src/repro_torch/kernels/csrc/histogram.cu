@@ -62,6 +62,9 @@
 //                            node totals from feature 0's scan, gain,
 //                            masks, and a block-wide first argmax over
 //                            f*B + b.
+// repro_split_scan launches pass 2b alone, on a histogram the caller built:
+// the row-sharded level sums its shards' partial histograms (repro_histogram
+// with the shards' nodes side by side) in shard order and scans the sum.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -468,14 +471,6 @@ AccShape accumulate_shape(int F, int B, int nodes_per_tile, int smem_optin) {
   return a;
 }
 
-int device_smem_optin() {
-  int dev = 0, v = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
-    return 0;
-  return v;
-}
-
 template <bool VB, int ROWS>
 cudaError_t launch_accumulate_t(const int* bins, const float* grad, const float* hess,
                                 const int* node, float* partial, int R, int F, int B,
@@ -488,7 +483,7 @@ cudaError_t launch_accumulate_t(const int* bins, const float* grad, const float*
   // that set and this launch (CUDA error 1, invalid argument).
   const cudaError_t e = cudaFuncSetAttribute(
       hist_accumulate<VB, ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      device_smem_optin());
+      repro::device_smem_optin());
   if (e != cudaSuccess) return e;
   const int n_tiles = (n_acc + nodes_per_tile - 1) / nodes_per_tile;
   const int group = kLanes / ROWS;
@@ -506,7 +501,7 @@ cudaError_t launch_accumulate(const int* bins, const float* grad,
                               cudaStream_t stream) {
   if (R <= 0 || n_chunks <= 0) return cudaSuccess;  // a zero grid is a launch error
   if (nodes_per_tile < 1 || chunk_rows < 1 || n_chunks > 65535) return cudaErrorInvalidValue;
-  const AccShape shape = accumulate_shape(F, B, nodes_per_tile, device_smem_optin());
+  const AccShape shape = accumulate_shape(F, B, nodes_per_tile, repro::device_smem_optin());
   if (shape.warps < 1) return cudaErrorInvalidValue;
   // 16-byte copies where every row's bins are 16-byte aligned
   const bool vb = F % 4 == 0 && (reinterpret_cast<uintptr_t>(bins) & 15u) == 0;
@@ -598,6 +593,20 @@ int repro_level_split(const int* bins, const float* grad, const float* hess,
   split_scan<<<n_nodes, 32 * kScanWarps, 0, s>>>(
       reinterpret_cast<const float2*>(hist), feat_mask, lam, mcw, bin_limit,
       best_gain, best_feat, best_split, F, B);
+  return (int)cudaGetLastError();
+}
+
+// The split scan alone, on a histogram (n_nodes, F, B, 2) the caller built
+// (the row-sharded level: the shards' partial histograms summed in shard
+// order). The same pass as repro_level_split's last launch. Returns the
+// CUDA error.
+int repro_split_scan(const float* hist, const int* feat_mask, float lam, float mcw,
+                     int bin_limit, float* best_gain, int* best_feat, int* best_split,
+                     int n_nodes, int F, int B, void* stream) {
+  if (n_nodes <= 0) return (int)cudaSuccess;  // a zero grid is a launch error
+  split_scan<<<n_nodes, 32 * kScanWarps, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float2*>(hist), feat_mask, lam, mcw, bin_limit, best_gain,
+      best_feat, best_split, F, B);
   return (int)cudaGetLastError();
 }
 

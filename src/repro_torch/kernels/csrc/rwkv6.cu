@@ -369,8 +369,11 @@ cudaError_t launch_p(const void* r, const void* k, const void* v, const float* w
                      const float* u, const float* s0, void* y, float* s_out, int B, int H,
                      int Tn, int Dk, int Dv, const Layout& l, bool vec, cudaStream_t s) {
   const size_t smem = l.staged + (vec ? 2 * l.raw : 0);
+  // the whole opt-in, not this launch's size: threads launch other (Dk, Dv)
+  // and `vec` at the same time (common.cuh)
   cudaError_t e = cudaFuncSetAttribute(rwkv6_fwd<T, P>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       repro::device_smem_optin());
   if (e != cudaSuccess) return e;
   const dim3 grid(B * H, (Dv + l.cols - 1) / l.cols);
   rwkv6_fwd<T, P><<<grid, l.cols * P / kCols, smem, s>>>(

@@ -10,15 +10,19 @@ deterministic); this module holds their ctypes wrappers:
   port of the JAX package's ``histogram_tpu``;
 * :func:`fused_level_split_cuda` — one tree level: the same sums, the
   histogram-subtraction assembly and the split scan, the port of
-  ``fused_level_split_tpu``.
+  ``fused_level_split_tpu``;
+* :func:`split_scan_cuda` — that kernel's split scan alone, on a histogram
+  the caller built: the row-sharded level (``ops.level_split`` with a shard
+  axis) scans its shards' summed histograms with it.
 
 Each wrapper checks its tensors, allocates outputs and scratch with
 ``torch.empty``, launches on PyTorch's current stream, raises if the launch
 failed, and adds one to its ``launches`` counter. It takes CUDA tensors
 only: the plain versions (``ops._histogram_scatter``, ``ref.*``) serve the
 CPU. Oracles: :func:`repro_torch.kernels.ref.histogram_ref` /
-:func:`repro_torch.kernels.ref.level_split_ref`. Dispatch: ``ops.histogram``
-/ ``ops.level_split``.
+:func:`repro_torch.kernels.ref.level_split_ref` /
+:func:`repro_torch.kernels.ref.split_scan_ref`. Dispatch: ``ops.histogram``
+/ ``ops.level_split`` / ``ops.split_scan``.
 """
 from __future__ import annotations
 
@@ -28,8 +32,8 @@ import torch
 
 from repro_torch.kernels import _build, _launch
 
-__all__ = ["histogram_cuda", "fused_level_split_cuda", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["histogram_cuda", "fused_level_split_cuda", "split_scan_cuda",
+           "launch_counts", "reset_launch_counts"]
 
 #: cap on the partial histograms pass 1 writes and pass 2 reads back
 _PARTIAL_BYTES_CAP = 64 << 20
@@ -43,11 +47,11 @@ _SKIP_COST = 0.05
 
 _device_info: dict[int, tuple[int, int]] = {}
 _tilings: dict[tuple, tuple[int, int]] = {}
-_NAMES = ("histogram", "level_split")
+_NAMES = ("histogram", "level_split", "split_scan")
 
 
 def launch_counts() -> dict[str, int]:
-    """Launches of the two GBDT wrappers since the last
+    """Launches of the three GBDT wrappers since the last
     :func:`reset_launch_counts` (``kernels.launch_counts`` has every kernel)."""
     return _launch.launch_counts(_NAMES)
 
@@ -132,6 +136,13 @@ def _check_rows(bins, grad, hess, node):
     return r, f
 
 
+def _feat_mask(feat_mask, f: int, dev) -> torch.Tensor:
+    fm = (torch.ones(f, dtype=torch.int32, device=dev) if feat_mask is None
+          else torch.as_tensor(feat_mask, device=dev).to(torch.int32).contiguous())
+    _launch.check("feat_mask", fm, torch.int32, (f,))
+    return fm
+
+
 @_launch.counted("histogram")
 def histogram_cuda(bins, grad, hess, node, *, n_nodes: int, n_bins: int):
     """Per-(node, feature, bin) grad/hess sums on the card; see
@@ -194,9 +205,7 @@ def fused_level_split_cuda(bins, grad, hess, node, *, n_nodes: int, n_bins: int,
             raise ValueError("subtraction needs small_is_left")
         sil = small_is_left.to(torch.int32).contiguous()
         _launch.check("small_is_left", sil, torch.int32, (n_acc,))
-    fm = (torch.ones(f, dtype=torch.int32, device=dev) if feat_mask is None
-          else torch.as_tensor(feat_mask, device=dev).to(torch.int32).contiguous())
-    _launch.check("feat_mask", fm, torch.int32, (f,))
+    fm = _feat_mask(feat_mask, f, dev)
     blim = n_bins if bin_limit is None else int(bin_limit)
     n_chunks, chunk_rows, npt = _plan(dev, r, f, n_bins, n_acc)
     partial = torch.empty((max(n_chunks, 1), n_acc, f, n_bins, 2),
@@ -219,3 +228,30 @@ def fused_level_split_cuda(bins, grad, hess, node, *, n_nodes: int, n_bins: int,
     _launch.count(fused_level_split_cuda)
     return (hist if return_hist else None), best_gain, best_feat, best_split
 
+
+
+@_launch.counted("split_scan")
+def split_scan_cuda(hist, *, lam, min_child_weight, bin_limit=None, feat_mask=None):
+    """Each node's best split of a histogram ``hist`` (n_nodes, F, B, 2)
+    float32 on the card, by the split scan of :func:`fused_level_split_cuda`
+    (see ``ref.split_scan_ref``). Returns ``(best_gain, best_feat,
+    best_split)`` as (n_nodes,) tensors; an all-masked node gives ``(-inf,
+    0, 0)``."""
+    if hist.dim() != 4 or hist.shape[-1] != 2:
+        raise ValueError(f"hist must be (n_nodes, F, B, 2), got {tuple(hist.shape)}")
+    n_nodes, f, n_bins, _ = hist.shape
+    _launch.check("hist", hist, torch.float32, (n_nodes, f, n_bins, 2))
+    dev = hist.device
+    fm = _feat_mask(feat_mask, f, dev)
+    blim = n_bins if bin_limit is None else int(bin_limit)
+    best_gain = torch.empty(n_nodes, dtype=torch.float32, device=dev)
+    best_feat = torch.empty(n_nodes, dtype=torch.int32, device=dev)
+    best_split = torch.empty(n_nodes, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.load().repro_split_scan(
+            hist.data_ptr(), fm.data_ptr(), float(lam), float(min_child_weight), blim,
+            best_gain.data_ptr(), best_feat.data_ptr(), best_split.data_ptr(),
+            n_nodes, f, n_bins, torch.cuda.current_stream(dev).cuda_stream)
+    _launch.raise_on(err, "split-scan kernel launch")
+    _launch.count(split_scan_cuda)
+    return best_gain, best_feat, best_split

@@ -23,10 +23,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.compat import ShardAxis
 from repro_torch.kernels import ref as _ref
 
 __all__ = ["attention", "decode_attention", "rglru", "rwkv6", "histogram",
-           "level_split"]
+           "split_scan", "level_split"]
 
 
 def _use_kernel(force, t: torch.Tensor) -> bool:
@@ -117,13 +118,21 @@ def _histogram_scatter(bins, grad, hess, node, n_nodes, n_bins):
     return torch.stack([acc(grad), acc(hess)], dim=-1)
 
 
-def histogram(bins, grad, hess, node, *, n_nodes, n_bins, force=None):
+def histogram(bins, grad, hess, node, *, n_nodes, n_bins, force=None,
+              axis_name=None, row_valid=None):
     """GBDT grad/hess histograms. See ``histogram_ref``.
 
     Tree levels go through :func:`level_split`; this is the standalone
     histogram entry point, which ``build_tree`` uses for its leaf sums
     (one feature, one bin) so that they too are deterministic on the card.
+    With ``axis_name`` (a :class:`~repro_torch.compat.ShardAxis`) the inputs
+    are row blocks stacked by shard and the result is the shards' partial
+    histograms summed in shard order (:func:`_shard_histogram`).
     """
+    if axis_name is not None:
+        return _shard_histogram(bins, grad, hess, node, n_nodes=n_nodes,
+                                n_bins=n_bins, axis=axis_name,
+                                row_valid=row_valid, force=force)
     if force == "ref":
         return _ref.histogram_ref(bins, grad, hess, node, n_nodes, n_bins)
     if _use_kernel(force, bins):
@@ -163,6 +172,100 @@ def _plan_smaller_child(node, n_nodes, n_rows):
     return small_is_left, idx[:cap], valid
 
 
+def split_scan(hist, *, lam, min_child_weight, bin_limit=None, feat_mask=None,
+               force=None):
+    """Each node's best split of a level's histograms ``hist`` (n_nodes, F,
+    B, 2): ``(best_gain, best_feat, best_split)``. See ``split_scan_ref``;
+    on the card the level kernel's scan pass (``split_scan_cuda``)."""
+    if _use_kernel(force, hist):
+        from repro_torch.kernels.histogram import split_scan_cuda
+
+        return split_scan_cuda(hist.contiguous(), lam=lam,
+                               min_child_weight=min_child_weight,
+                               bin_limit=bin_limit, feat_mask=feat_mask)
+    return _ref.split_scan_ref(hist, lam=lam, min_child_weight=min_child_weight,
+                               n_bins=hist.shape[2], bin_limit=bin_limit,
+                               feat_mask=feat_mask)
+
+
+def _shard_histogram(bins, g, h, node, *, n_nodes, n_bins, axis, row_valid=None,
+                     force=None):
+    """The row-sharded histogram (DESIGN.md §3.9): ``bins`` (S, Rs, F) and
+    ``g``/``h``/``node`` (S, Rs) hold each shard's row block, ``row_valid``
+    (S, Rs) masks the pad rows. Each shard's partial (n_nodes, F, B, 2)
+    histogram comes from one histogram call over all the blocks side by
+    side, shard s's nodes offset by ``s * n_nodes`` and every pad row on the
+    padding node ``S * n_nodes``; the partials are then summed by the
+    axis's ``psum``, in shard order. A shard's cells hold its own rows only,
+    in its own row order, so its partial is what it alone would give.
+
+    On the card that call is ``histogram_cuda`` (``force="ref"`` or
+    ``"plain"``: the scatter); on the CPU the scatter, as the JAX package's
+    sharded level scatters."""
+    if not isinstance(axis, ShardAxis):
+        raise TypeError(f"a sharded histogram needs a compat.ShardAxis, got {axis!r}")
+    s, rs = node.shape
+    nd = node.to(torch.int32) + (torch.arange(s, dtype=torch.int32, device=node.device)
+                                 * n_nodes)[:, None]
+    if row_valid is not None:
+        nd = torch.where(row_valid, nd, torch.full_like(nd, s * n_nodes))
+    flat = (bins.reshape(s * rs, bins.shape[-1]), g.reshape(-1), h.reshape(-1),
+            nd.reshape(-1))
+    if _use_kernel(force, bins):
+        from repro_torch.kernels.histogram import histogram_cuda
+
+        part = histogram_cuda(*(t.contiguous() for t in flat), n_nodes=s * n_nodes,
+                              n_bins=n_bins)
+    else:
+        part = _histogram_scatter(*flat, s * n_nodes, n_bins)
+    return axis.psum(part.reshape(s, n_nodes, *part.shape[1:]))
+
+
+def _sharded_level_split(
+    bins, g, h, node, *, n_nodes, n_bins, lam, min_child_weight, axis,
+    row_valid, bin_limit=None, feat_mask=None, parent_hist=None,
+    return_hist=True, force=None,
+):
+    """Cross-shard level build (DESIGN.md §3.9): per-shard partial
+    histograms combined by ONE shard-order ``psum`` before the split scan
+    (``split_scan``: ``split_scan_cuda`` on the card).
+
+    The inputs are the stacked row blocks of ``compat.sharded_call``;
+    ``row_valid`` masks the zero-padded tail. Subtraction composes across
+    shards, but the smaller-child PLAN must be global: per-shard row counts
+    can disagree on which sibling is smaller, so the counts are summed
+    first and every shard sends its small-child rows to their parent's
+    slot and every other row to the dump slot — no compaction: a globally
+    small child's rows may all sit on one shard, so a per-shard ``R/2`` cap
+    would drop rows. After the psum the histogram, and so every split
+    decision, is the same whatever the shard count."""
+    subtract = parent_hist is not None and n_nodes > 1
+    if subtract:
+        valid = (torch.ones(node.shape, dtype=torch.bool, device=node.device)
+                 if row_valid is None else row_valid)
+        per_shard = torch.zeros((axis.size, n_nodes), dtype=torch.int32,
+                                device=node.device)
+        cnt = axis.psum(per_shard.scatter_add_(1, node.long(), valid.to(torch.int32)))
+        small_is_left = cnt[0::2] <= cnt[1::2]
+        n_half = n_nodes // 2
+        is_small = torch.stack([small_is_left, ~small_is_left], dim=1).reshape(-1)
+        is_small = is_small[node.long()] & valid
+        small = _shard_histogram(bins, g, h, node // 2, n_nodes=n_half,
+                                 n_bins=n_bins, axis=axis, row_valid=is_small,
+                                 force=force)
+        big = parent_hist - small
+        silb = small_is_left[:, None, None, None]
+        hist = torch.stack(
+            [torch.where(silb, small, big), torch.where(silb, big, small)], dim=1,
+        ).reshape(n_nodes, bins.shape[-1], n_bins, 2)
+    else:
+        hist = _shard_histogram(bins, g, h, node, n_nodes=n_nodes, n_bins=n_bins,
+                                axis=axis, row_valid=row_valid, force=force)
+    bg, bf, bs = split_scan(hist, lam=lam, min_child_weight=min_child_weight,
+                            bin_limit=bin_limit, feat_mask=feat_mask, force=force)
+    return (hist if return_hist else None), bg, bf, bs
+
+
 def level_split(
     bins, g, h, node, *, n_nodes, n_bins, lam, min_child_weight,
     bin_limit=None, feat_mask=None, parent_hist=None, return_hist=True,
@@ -177,12 +280,21 @@ def level_split(
     pair is accumulated from rows, the sibling is ``parent − small``. The CPU
     path's DIRECT mode is ``_histogram_scatter`` + ``ref.split_scan_ref``.
     ``force`` is threaded by ``build_tree`` so tests can pin a path end to
-    end. ``axis_name``/``row_valid`` (the row-sharded data plane) are not
-    ported yet.
+    end.
+
+    With ``axis_name`` (a :class:`~repro_torch.compat.ShardAxis`) the call
+    runs on the row-sharded data plane (DESIGN.md §3.9): the inputs are row
+    blocks stacked by shard, ``row_valid`` masks pad rows, per-shard partial
+    histograms are combined with one ``psum`` and the scan runs on the
+    global histogram (:func:`_sharded_level_split`); the returned decisions
+    (and ``hist``) do not depend on the shard count.
     """
     if axis_name is not None:
-        raise NotImplementedError(
-            "the row-sharded data plane (axis_name) is not ported yet")
+        return _sharded_level_split(
+            bins, g, h, node, n_nodes=n_nodes, n_bins=n_bins, lam=lam,
+            min_child_weight=min_child_weight, axis=axis_name,
+            row_valid=row_valid, bin_limit=bin_limit, feat_mask=feat_mask,
+            parent_hist=parent_hist, return_hist=return_hist, force=force)
     if force == "ref":
         hist, bg, bf, bs = _ref.level_split_ref(
             bins, g, h, node, n_nodes, n_bins, lam=lam,

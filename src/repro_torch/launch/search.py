@@ -14,8 +14,10 @@ early-stop it mid-stream. Flag for flag the JAX package's launcher, plus
 ``--device``: it runs on the card unless ``--device cpu`` is given, and
 without a card it raises.
 
-Not ported yet: ``--workload lm`` (mesh-slice executors) and ``--shards``
-above 1 (the row-sharded data plane), both ROADMAP Queue 1 item 9.
+``--shards N`` row-shards the prepared data N ways (DESIGN.md §3.9): the
+shards' row blocks are stacked on the one device and every family trains on
+them through ``compat.sharded_call``. Not ported yet: ``--workload lm``
+(the LM search on mesh slices, ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -87,20 +89,19 @@ def tabular_data(args):
     return train, valid, test
 
 
-def run_tabular(args) -> Session:
+def run_tabular(args, *, spaces=None, backend=None) -> Session:
     """Run the search ``args`` describes, printing its summary and best
     lines; returns the finished :class:`Session` (its ``multi_model()``
     holds every result). Makes ``args.device`` (default: the card) the
-    process's default device, and raises where that device is absent."""
-    if args.shards > 1:
-        raise NotImplementedError(
-            "--shards > 1 needs the row-sharded data plane, not ported yet "
-            "(ROADMAP Queue 1 item 9)")
+    process's default device, and raises where that device is absent.
+    ``spaces`` replaces the paper grid (``paper_search_space(args.scale)``)
+    and ``backend`` the Session's own thread pool (e.g. a
+    ``MeshSliceExecutorPool``)."""
     set_default_device(default_device(args.device or "cuda"))
     train, valid, test = tabular_data(args)
 
     spec = SearchSpec(
-        spaces=paper_search_space(args.scale),
+        spaces=spaces if spaces is not None else paper_search_space(args.scale),
         n_executors=args.executors,
         policy=args.policy,
         profiler=(SamplingProfiler(args.sample_rate) if args.profiler == "sampling"
@@ -128,9 +129,9 @@ def run_tabular(args) -> Session:
         # budgets passed alongside --resume apply to THIS invocation too
         keep = any(v is not None for v in
                    (args.max_seconds, args.max_tasks, args.target_metric))
-        session = Session.resume(args.wal, spec, keep_budgets=keep)
+        session = Session.resume(args.wal, spec, keep_budgets=keep, backend=backend)
     else:
-        session = Session(spec)
+        session = Session(spec, backend)
     t0 = time.perf_counter()
     done = 0
     for r in session.results(train, valid):
@@ -230,8 +231,8 @@ def parse_args(argv=None):
     p.add_argument("--max-fuse", type=int, default=16, metavar="N",
                    help="largest fused batch (configs per program, default 16)")
     p.add_argument("--shards", type=int, default=1, metavar="N",
-                   help="row-shard the prepared data N ways (DESIGN.md §3.9); "
-                        "not ported yet: only 1 (replicated) runs")
+                   help="row-shard the prepared data N ways (DESIGN.md §3.9): "
+                        "per-shard residency, cross-shard histogram sums")
     p.add_argument("--max-task-retries", type=int, default=0, metavar="N",
                    help="re-run a task whose train raises up to N times "
                         "(capped exponential backoff) before it surfaces "
@@ -268,8 +269,8 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     if args.workload == "lm":
         raise NotImplementedError(
-            "--workload lm runs on mesh-slice executors, not ported yet "
-            "(ROADMAP Queue 1 item 9)")
+            "--workload lm (the LM search on mesh slices) is not ported yet "
+            "(ROADMAP Queue 1 item 6)")
     run_tabular(args)
     return 0
 

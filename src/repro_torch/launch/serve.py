@@ -1,14 +1,27 @@
-"""LM serving launcher: the LM mode of the JAX package's ``launch/serve.py``.
+"""Serving launcher, the JAX package's ``launch/serve.py``. Two modes:
 
-    python -m repro_torch.launch.serve --arch recurrentgemma-9b --smoke --device cpu
-    python -m repro_torch.launch.serve --arch rwkv6-7b           # on the card
+* LM token serving:
 
-It builds a ServeEngine on freshly initialised (seeded) weights and drives
-a synthetic stream of requests through prefill + greedy decode in waves of
-``--batch``, reporting tokens/s. It runs on the card unless ``--device cpu``
-is given; without a card it raises. The reference's ``--search-service``,
-``--mesh`` and ``--ckpt-dir`` are not ported yet (the multi-tenant search
-service, sharding and checkpoints).
+      python -m repro_torch.launch.serve --arch recurrentgemma-9b --smoke --device cpu
+      python -m repro_torch.launch.serve --arch rwkv6-7b           # on the card
+
+  builds a ServeEngine on freshly initialised (seeded) weights and drives a
+  synthetic stream of requests through prefill + greedy decode in waves of
+  ``--batch``, reporting tokens/s.
+
+* Multi-tenant model search (DESIGN.md §3.5):
+
+      python -m repro_torch.launch.serve --search-service --device cpu \
+          --tenant-weight alice=2 --tenant-weight bob=1
+
+  boots a :class:`repro_torch.serve.SearchService` and runs one concurrent
+  search per declared tenant on shared executors, fair-share arbitrated,
+  printing per-tenant ServiceStats (makespan, wait, cache hits, share
+  drift).
+
+Both run on the card unless ``--device cpu`` is given; without a card they
+raise. The reference's ``--mesh`` and ``--ckpt-dir`` are not ported yet
+(ROADMAP Queue 1 items 5–6).
 """
 from __future__ import annotations
 
@@ -47,9 +60,64 @@ def run_lm_serve(args) -> int:
     return 0
 
 
+def _parse_tenant_weights(specs: list[str] | None) -> dict[str, float]:
+    if not specs:
+        return {"alice": 2.0, "bob": 1.0}
+    weights: dict[str, float] = {}
+    for item in specs:
+        name, _, w = item.partition("=")
+        if not name or not w:
+            raise SystemExit(f"--tenant-weight expects NAME=WEIGHT, got {item!r}")
+        weights[name] = float(w)
+    return weights
+
+
+def run_search_service(args) -> int:
+    import repro_torch.tabular  # noqa: F401  (registers the estimators)
+    from repro_torch.core import SearchSpec
+    from repro_torch.data.synthetic import make_higgs_like
+    from repro_torch.device import default_device, set_default_device
+    from repro_torch.launch.search import paper_search_space
+    from repro_torch.serve import SearchService
+
+    set_default_device(default_device(args.device or "cuda"))
+    weights = _parse_tenant_weights(args.tenant_weight)
+    data = make_higgs_like(args.rows, seed=0)
+    train, valid = data.split((0.8, 0.2), seed=0)
+    train, mu, sd = train.standardize()
+    valid, _, _ = valid.standardize(mu, sd)
+    budget = (int(args.cache_budget_mb * 1024 * 1024)
+              if args.cache_budget_mb is not None else None)
+    spec = SearchSpec(spaces=paper_search_space(args.scale),
+                      n_executors=args.executors, max_tasks=args.max_tasks)
+    svc = SearchService(n_executors=args.executors,
+                        max_active=args.max_active,
+                        max_queued=args.max_queued,
+                        mode=args.scheduler,
+                        artifact_root=args.artifact_root,
+                        cache_budget_bytes=budget)
+    t0 = time.perf_counter()
+    try:
+        handles = [svc.submit_search(spec, train, valid, tenant=t, weight=w)
+                   for t, w in weights.items()]
+        for h in handles:
+            n_ok = sum(1 for r in h.results() if r.ok)
+            best = h.multi_model().best(valid)
+            print(f"[{h.tenant}/{h.session_id}] {n_ok} models, "
+                  f"best {best.task.estimator} auc={best.score:.4f}, "
+                  f"ttfr={h.time_to_first_result:.2f}s")
+        print(f"\ntotal wall time {time.perf_counter() - t0:.2f}s "
+              f"on {default_device()}")
+        print(svc.stats().summary())
+    finally:
+        svc.close()
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--arch", required=True, help="LM architecture id")
+    p.add_argument("--arch", default=None,
+                   help="LM architecture id (required unless --search-service)")
     p.add_argument("--smoke", action="store_true", help="the reduced config")
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--max-len", type=int, default=128)
@@ -58,7 +126,36 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0, help="seed of the random weights")
     p.add_argument("--device", default=None,
                    help="torch device (default: the card; 'cpu' to run on the CPU)")
-    return run_lm_serve(p.parse_args(argv))
+    # -- multi-tenant search service (DESIGN.md §3.5) ----------------------
+    p.add_argument("--search-service", action="store_true",
+                   help="serve concurrent model searches instead of LM tokens")
+    p.add_argument("--executors", type=int, default=4,
+                   help="shared worker threads executing all tenants' units")
+    p.add_argument("--max-active", type=int, default=8,
+                   help="concurrent session slots; later submits queue")
+    p.add_argument("--max-queued", type=int, default=None,
+                   help="queued-session bound; beyond it submits are rejected")
+    p.add_argument("--tenant-weight", action="append", metavar="NAME=W",
+                   help="declare a tenant and its fair-share weight "
+                        "(repeatable; default alice=2 bob=1)")
+    p.add_argument("--cache-budget-mb", type=float, default=None,
+                   help="byte budget for the shared prepared-data/compile "
+                        "caches (LRU-evicted beyond it)")
+    p.add_argument("--scheduler", choices=("fair_share", "fifo"),
+                   default="fair_share")
+    p.add_argument("--rows", type=int, default=2000)
+    p.add_argument("--scale", type=float, default=0.2,
+                   help="paper grid scale factor (CPU-friendly default)")
+    p.add_argument("--max-tasks", type=int, default=12,
+                   help="per-session task budget for the demo searches")
+    p.add_argument("--artifact-root", default=None,
+                   help="root for per-tenant WALs + the fleet cost model")
+    args = p.parse_args(argv)
+    if args.search_service:
+        return run_search_service(args)
+    if args.arch is None:
+        p.error("--arch is required unless --search-service is given")
+    return run_lm_serve(args)
 
 
 if __name__ == "__main__":

@@ -26,9 +26,12 @@ __all__ = [
 
 
 class Init:
-    """Seeded initializer: every tensor is drawn from one ``torch.Generator``
-    on ``device`` and stored in ``dtype``. The draws are PyTorch's, not
-    ``jax.random``'s: weights carried from the JAX package go through
+    """Seeded initializer: every tensor is drawn from one CPU
+    ``torch.Generator``, moved to ``device`` right away and stored in
+    ``dtype``, so one seed gives the same weights on every device (PyTorch's
+    CPU and CUDA generators are different algorithms) and the host holds one
+    tensor at a time. The draws are PyTorch's, not ``jax.random``'s: weights
+    carried from the JAX package go through
     ``transformer.params_from_reference`` instead."""
 
     def __init__(self, generator: torch.Generator, dtype=torch.float32, device=None):
@@ -38,9 +41,8 @@ class Init:
 
     def normal(self, shape, stddev: float | None = None) -> torch.Tensor:
         std = stddev if stddev is not None else shape[0] ** -0.5
-        x = torch.randn(shape, generator=self.generator, device=self.device,
-                        dtype=torch.float32).mul_(std)
-        return x.to(self.dtype)
+        x = torch.randn(shape, generator=self.generator, dtype=torch.float32).mul_(std)
+        return x.to(device=self.device, dtype=self.dtype)
 
     def zeros(self, shape) -> torch.Tensor:
         return torch.zeros(shape, dtype=self.dtype, device=self.device)

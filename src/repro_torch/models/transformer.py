@@ -178,13 +178,15 @@ def _init_layer(init: Init, cfg: ArchConfig, spec: LayerSpec) -> dict:
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> LMParams:
-    """Random weights drawn from a ``torch.Generator`` seeded with ``seed``
-    on ``device`` (the card by default), with the JAX package's shapes and
-    scales. PyTorch's draws differ from ``jax.random``'s: to run the JAX
-    package's weights use :func:`params_from_reference`."""
+    """Random weights drawn from a CPU ``torch.Generator`` seeded with
+    ``seed`` and moved one tensor at a time to ``device`` (the card by
+    default), with the JAX package's shapes and scales: one seed gives the
+    same weights on every device. PyTorch's draws differ from
+    ``jax.random``'s: to run the JAX package's weights use
+    :func:`params_from_reference`."""
     _check_ported(cfg)
     dev = default_device(device)
-    init = Init(torch.Generator(device=dev).manual_seed(seed), cfg.pdtype, dev)
+    init = Init(torch.Generator().manual_seed(seed), cfg.pdtype, dev)
     # σ = d^-1/2 keeps TIED unembed logits O(1)
     embed = init.normal((cfg.vocab, cfg.d_model), stddev=cfg.d_model ** -0.5)
     layers = [_init_layer(init, cfg, spec) for spec in layer_specs(cfg)]

@@ -13,6 +13,12 @@ CUDA level kernel on the card). Tree t's draws come from
 batching grow the same trees as one straight fit. g = −y·w and h = w are
 integers, so every histogram sum is exact and the kernel and plain paths
 grow bit-identical trees.
+
+On a row-sharded payload (DESIGN.md §3.9) each tree draws its bootstrap
+weights over the FULL row range, exactly as the unsharded fit does, and
+slices them per shard; with integer g and h the cross-shard histogram sums
+are exact too, so the sharded forest's trees, leaves included, are the
+unsharded forest's bit for bit.
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ from typing import Any, Callable, Mapping
 import numpy as np
 import torch
 
-from repro_torch.core.data_format import refuse_sharded
+from repro_torch.core.data_format import is_sharded_payload
 from repro_torch.core.interface import (
     Estimator,
     ResumeState,
@@ -29,27 +35,33 @@ from repro_torch.core.interface import (
     register_estimator,
 )
 from repro_torch.tabular.draws import forest_tree_draws
-from repro_torch.tabular.gbdt import batched_tree_margins, build_tree
+from repro_torch.tabular.gbdt import batched_tree_margins, build_tree, run_core
 
 __all__ = ["ForestEstimator", "ForestModel"]
 
-#: ``draws(t, device) -> (w, perm)``: tree t's bootstrap weights and
-#: feature permutation
+#: ``draws(t, device) -> (w, perm)``: tree t's bootstrap weights over the
+#: full row range and feature permutation
 TreeDraws = Callable[[int, torch.device], tuple[torch.Tensor, torch.Tensor]]
 
 
 def _grow_forest(bins, y, draws: TreeDraws, min_samples_leaf, depth_limit, start,
                  *, n_bins: int, n_trees: int, max_depth: int, max_features: int,
-                 subtract: bool = True, force=None):
+                 subtract: bool = True, force=None, axis_name=None, row_valid=None):
     """Grow trees ``start .. start + n_trees``; returns ``(feat, split,
     leaf_value)`` as (n_trees, ·) tensors. Trees are independent and tree
     t's draws depend only on t, so a fit in pieces (resume) or beside other
-    configs (batches) gives the trees of one straight fit."""
-    r, f = bins.shape
+    configs (batches) gives the trees of one straight fit. With
+    ``axis_name`` the rows are shard blocks, ``bins`` (S, Rs, F): the
+    draws' full (R,) weights are zero-padded to S·Rs and cut into the
+    shards' blocks."""
+    f = bins.shape[-1]
     dev = bins.device
     feats, splits, leaves = [], [], []
     for t in range(start, start + n_trees):
         w, perm = draws(t, dev)
+        if axis_name is not None:
+            w = torch.nn.functional.pad(w, (0, bins.shape[0] * bins.shape[1] - w.shape[0]))
+            w = w.reshape(bins.shape[:-1])
         feat_mask = torch.zeros(f, dtype=torch.bool, device=dev)
         feat_mask[perm[:max_features]] = True
         g = -y * w
@@ -58,7 +70,8 @@ def _grow_forest(bins, y, draws: TreeDraws, min_samples_leaf, depth_limit, start
             bins, g, h, n_bins=n_bins, max_depth=max_depth,
             lam=1e-6, gamma=0.0, min_child_weight=min_samples_leaf,
             feat_mask=feat_mask, depth_limit=depth_limit,
-            subtract=subtract, force=force)
+            subtract=subtract, force=force,
+            axis_name=axis_name, row_valid=row_valid)
         feats.append(feat)
         splits.append(split)
         leaves.append(-leaf_g / torch.clamp_min(leaf_h, 1e-6))   # = weighted mean(y)
@@ -130,20 +143,22 @@ class ForestEstimator(Estimator):
         ).astype(np.float32)
 
     @staticmethod
-    def _draws(p, bins, draws) -> TreeDraws:
+    def _draws(p, data, draws) -> TreeDraws:
+        """The config's draws over the payload's full row range (a sharded
+        payload's too: the shards slice them)."""
         if draws is not None:
             return draws
-        seed, (r, f) = int(p["seed"]), bins.shape
+        seed, f = int(p["seed"]), data["bins"].shape[-1]
+        r = int(data["_n_rows"]) if is_sharded_payload(data) else data["bins"].shape[0]
         return lambda t, dev: forest_tree_draws(seed, t, r, f, dev)
 
     def _grow(self, data, p, draws, start, n_trees, max_depth, force=None):
         """Trees ``start ..`` of config ``p`` as numpy (feat, thresh, leaves)."""
-        bins = data["bins"]
-        feat, split, leaves = _grow_forest(
-            bins, data["y"], self._draws(p, bins, draws),
+        feat, split, leaves = run_core(
+            _grow_forest, data, self._draws(p, data, draws),
             float(np.float32(p["min_samples_leaf"])), int(p["max_depth"]), start,
             n_bins=int(data["n_bins"]), n_trees=n_trees, max_depth=max_depth,
-            max_features=max(1, int(np.sqrt(bins.shape[-1]))), force=force)
+            max_features=max(1, int(np.sqrt(data["bins"].shape[-1]))), force=force)
         feat_np, split_np = feat.cpu().numpy(), split.cpu().numpy()
         thresh = self._thresholds(feat_np, split_np, data["edges"].cpu().numpy())
         return feat_np, thresh, leaves.cpu().numpy()
@@ -153,7 +168,6 @@ class ForestEstimator(Estimator):
         """``force`` pins the ops path (see ``kernels/ops.py``: ``"ref"``
         the oracle, ``"plain"`` the plain scatter path); ``draws(t,
         device)`` replaces the seeded draws (see draws.py)."""
-        refuse_sharded(data, "forest")
         p = {**self.default_params(), **params}
         max_depth = int(p["max_depth"])
         feat, thresh, leaves = self._grow(data, p, draws, 0, int(p["n_estimators"]),
@@ -164,7 +178,6 @@ class ForestEstimator(Estimator):
     def train_resumable(self, data, params: Mapping[str, Any], *,
                         budget: int, state: ResumeState | None = None,
                         draws: TreeDraws | None = None):
-        refuse_sharded(data, "forest")
         p = {**self.default_params(), **params}
         max_depth = int(p["max_depth"])
         target = int(budget)
@@ -209,7 +222,6 @@ class ForestEstimator(Estimator):
         ``cache`` is accepted for the interface; eager PyTorch compiles
         nothing to cache."""
         del cache
-        refuse_sharded(data, "forest")
         ps = [{**self.default_params(), **c} for c in configs]
         pad_depth = max((int(p["max_depth"]) for p in ps), default=1)
         return [ForestModel(*self._grow(data, p, None, 0, int(p["n_estimators"]),

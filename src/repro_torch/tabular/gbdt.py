@@ -23,6 +23,8 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from repro_torch import compat
+from repro_torch.core.data_format import is_sharded_payload
 from repro_torch.core.evaluation import stable_sigmoid
 from repro_torch.core.interface import (
     Estimator,
@@ -64,8 +66,8 @@ def build_tree(
     bin_limit=None,             # int: valid splits are < bin_limit - 1
     subtract: bool = True,      # histogram subtraction (DESIGN.md §3.8)
     force=None,                 # ops dispatch override, threaded to the kernel
-    axis_name=None,             # row-sharded data plane: not ported yet
-    row_valid=None,             # its pad-row mask: not ported yet
+    axis_name=None,             # ShardAxis: row-sharded data (DESIGN.md §3.9)
+    row_valid=None,             # (S, Rs) bool — False on sharded pad rows
 ):
     """Grow one level-wise tree; returns (feat, split_bin, leaf_g, leaf_h).
 
@@ -84,13 +86,16 @@ def build_tree(
     ``parent − small``. The leaf sums are one ``ops.histogram`` over a single
     all-zero bin column, so on the card they go through the deterministic
     histogram kernel rather than float atomics.
+
+    With ``axis_name`` the rows arrive as shard blocks, ``bins`` (S, Rs, F)
+    and ``g``/``h`` (S, Rs): every level's histogram and the leaf sums are
+    the shards' partials summed in shard order (``ops.level_split`` and
+    ``ops.histogram`` with the axis), so the tree does not depend on the
+    shard count beyond those sums' rounding.
     """
-    if axis_name is not None or row_valid is not None:
-        raise NotImplementedError(
-            "the row-sharded data plane (axis_name, row_valid) is not ported yet")
-    r = bins.shape[0]
+    rows = bins.shape[:-1]
     dev = bins.device
-    node = torch.zeros(r, dtype=torch.int32, device=dev)   # level-local node
+    node = torch.zeros(rows, dtype=torch.int32, device=dev)   # level-local node
     feats, splits = [], []
     parent = None                            # previous level's histograms
     n_split = max_depth if depth_limit is None else min(max_depth, int(depth_limit))
@@ -102,7 +107,8 @@ def build_tree(
             lam=lam, min_child_weight=min_child_weight,
             bin_limit=bin_limit, feat_mask=feat_mask,
             parent_hist=parent if subtract else None,
-            return_hist=keep_hist, force=force)
+            return_hist=keep_hist, force=force,
+            axis_name=axis_name, row_valid=row_valid)
         is_leaf = best_gain <= gamma
         feat = torch.where(is_leaf, torch.zeros_like(feat), feat)
         # sentinel split: every row routes left
@@ -110,10 +116,11 @@ def build_tree(
         feats.append(feat)
         splits.append(split)
         nl = node.long()
-        row_bin = torch.gather(bins, 1, feat[nl].long()[:, None])[:, 0]
+        row_bin = torch.gather(bins, -1, feat[nl].long()[..., None])[..., 0]
         node = 2 * node + (row_bin > split[nl]).to(torch.int32)
-    leaf = ops.histogram(torch.zeros((r, 1), dtype=torch.int32, device=dev),
-                         g, h, node, n_nodes=1 << n_split, n_bins=1, force=force)
+    leaf = ops.histogram(torch.zeros(rows + (1,), dtype=torch.int32, device=dev),
+                         g, h, node, n_nodes=1 << n_split, n_bins=1, force=force,
+                         axis_name=axis_name, row_valid=row_valid)
     leaf_g, leaf_h = leaf[:, 0, 0, 0], leaf[:, 0, 0, 1]
     pad = max_depth - n_split
     if pad:
@@ -130,11 +137,12 @@ def build_tree(
 
 
 def predict_margin(bins, feat, split, leaf_value, max_depth: int):
-    """Route binned rows through one heap-layout tree; returns (R,) margins."""
-    local = torch.zeros(bins.shape[0], dtype=torch.int64, device=bins.device)
+    """Route binned rows (..., F) through one heap-layout tree; returns the
+    (...) margins."""
+    local = torch.zeros(bins.shape[:-1], dtype=torch.int64, device=bins.device)
     for level in range(max_depth):
         g_idx = (1 << level) - 1 + local
-        row_bin = torch.gather(bins, 1, feat[g_idx].long()[:, None])[:, 0]
+        row_bin = torch.gather(bins, -1, feat[g_idx].long()[..., None])[..., 0]
         local = 2 * local + (row_bin > split[g_idx]).long()
     return leaf_value[local]
 
@@ -187,7 +195,7 @@ def _resume_gbdt_core(
     bins, y, margin0, factor, bin_limit, n_rounds, depth_limit,
     eta, lam, gamma, min_child_weight, start,
     *, n_bins: int, rounds: int, max_depth: int,
-    subtract: bool = True, force=None,
+    subtract: bool = True, force=None, axis_name=None, row_valid=None,
 ):
     """Boost ``rounds`` MORE trees on top of a carried margin — the rung
     machinery (DESIGN.md §3.6) and, from a constant margin, a whole fit.
@@ -196,7 +204,9 @@ def _resume_gbdt_core(
     the ensemble margin), so rung-k-then-resume appends the exact trees a
     straight run would have grown. Rounds past ``n_rounds`` add zero-valued
     trees; levels past ``depth_limit`` force sentinel splits; bins past
-    ``bin_limit`` never win."""
+    ``bin_limit`` never win. With ``axis_name`` the rows are shard blocks
+    (see :func:`build_tree`) and the margin stays per shard, (S, Rs): it is
+    row-local state."""
     cbins = bins if factor == 1 else torch.div(bins, factor, rounding_mode="floor")
     margin = margin0
     feats, splits, leaves = [], [], []
@@ -208,7 +218,8 @@ def _resume_gbdt_core(
             cbins, g, h, n_bins=n_bins, max_depth=max_depth,
             lam=lam, gamma=gamma, min_child_weight=min_child_weight,
             depth_limit=depth_limit, bin_limit=bin_limit,
-            subtract=subtract, force=force)
+            subtract=subtract, force=force,
+            axis_name=axis_name, row_valid=row_valid)
         # an empty padded leaf is 0/(0+λ), NaN for λ=0: zero it by selection
         leaf_value = (-eta * leaf_g / (leaf_h + lam) if r_idx < n_rounds
                       else torch.zeros_like(leaf_g))
@@ -228,17 +239,45 @@ def _resume_gbdt_core(
 def _fit_gbdt_core(
     bins, y, base, factor, bin_limit, n_rounds, depth_limit,
     eta, lam, gamma, min_child_weight, *, n_bins: int, rounds: int,
-    max_depth: int, subtract: bool = True, force=None,
+    max_depth: int, subtract: bool = True, force=None, axis_name=None,
+    row_valid=None,
 ):
     """One GBDT fit from the constant base margin; returns the trees
     ``(feat, split, leaf_value)`` as (rounds, ·) tensors."""
-    margin0 = torch.full((bins.shape[0],), base, dtype=torch.float32,
+    margin0 = torch.full(bins.shape[:-1], base, dtype=torch.float32,
                          device=bins.device)
     trees, _ = _resume_gbdt_core(
         bins, y, margin0, factor, bin_limit, n_rounds, depth_limit,
         eta, lam, gamma, min_child_weight, 0, n_bins=n_bins, rounds=rounds,
-        max_depth=max_depth, subtract=subtract, force=force)
+        max_depth=max_depth, subtract=subtract, force=force,
+        axis_name=axis_name, row_valid=row_valid)
     return trees
+
+
+# --------------------------------------------------------------------------
+# Sharded data plane (DESIGN.md §3.9): row-sharded fits.
+#
+# Inputs arrive block-stacked — bins (S, Rs, F), y (S, Rs), valid (S, Rs) —
+# from ``core.data_format.shard_payload``. The cores run the SAME round
+# program over the stacked blocks; the only cross-shard sums are inside
+# ``ops.level_split`` (one histogram psum per level, plus one count psum
+# for the global smaller-child plan) and the leaf-sum psums in
+# ``build_tree``. The trees do not depend on the shard count; the resume
+# margin stays per shard, (S, Rs).
+# --------------------------------------------------------------------------
+
+def run_core(core, data, *args, **kw):
+    """``core(bins, y, *args, **kw)`` on a quantized payload, the tree
+    families' cores' one entry: a sharded payload goes through
+    ``compat.sharded_call``, with its shard axis and pad-row mask."""
+    if not is_sharded_payload(data):
+        return core(data["bins"], data["y"], *args, **kw)
+
+    def per_shard(axis, bins, y, valid):
+        return core(bins, y, *args, axis_name=axis, row_valid=valid, **kw)
+
+    return compat.sharded_call(per_shard, n_shards=int(data["_n_shards"]))(
+        data["bins"], data["y"], data["_shard_valid"])
 
 
 class GBDTModel(TrainedModel):
@@ -325,8 +364,14 @@ class GBDTEstimator(Estimator):
         return factor, -(-n_bins // factor)
 
     @staticmethod
-    def _base_margin(y) -> float:
-        prior = float(np.clip(np.asarray(y.cpu()).mean(), 1e-6, 1 - 1e-6))
+    def _base_margin(data) -> float:
+        # a sharded payload's (S, Rs) blocks, flattened and cut at the row
+        # count: the unsharded label vector's values in its order, so the
+        # prior (and the base margin) is the same bits
+        y = data["y"].cpu().numpy().reshape(-1)
+        if is_sharded_payload(data):
+            y = y[: int(data["_n_rows"])]
+        prior = float(np.clip(y.mean(), 1e-6, 1 - 1e-6))
         return float(np.log(prior / (1 - prior)))
 
     @staticmethod
@@ -355,26 +400,27 @@ class GBDTEstimator(Estimator):
         """``force`` pins the ops path end to end (``"ref"`` runs the
         oracles), for comparing the kernel path with the plain one."""
         p = {**self.default_params(), **params}
-        bins, edges, y = data["bins"], data["edges"], data["y"]
         factor, n_cbins = self._coarsen(int(data["n_bins"]), int(p["max_bin"]))
         max_depth, rounds = int(p["max_depth"]), int(p["round"])
-        base = self._base_margin(y)
-        trees = _fit_gbdt_core(
-            bins, y, _f32(base), factor, n_cbins, rounds, max_depth,
+        base = self._base_margin(data)
+        trees = run_core(
+            _fit_gbdt_core, data, _f32(base), factor, n_cbins, rounds, max_depth,
             *self._hyper(p), n_bins=n_cbins, rounds=rounds,
             max_depth=max_depth, force=force)
-        return self._model(trees, edges, factor, n_cbins, base, max_depth)
+        return self._model(trees, data["edges"], factor, n_cbins, base, max_depth)
 
     # ---- adaptive search (DESIGN.md §3.6) -------------------------------
     def train_resumable(self, data, params: Mapping[str, Any], *,
                         budget: int, state: ResumeState | None = None):
         p = {**self.default_params(), **params}
-        bins, edges, y = data["bins"], data["edges"], data["y"]
+        edges, y = data["edges"], data["y"]
         factor, n_cbins = self._coarsen(int(data["n_bins"]), int(p["max_bin"]))
         max_depth = int(p["max_depth"])
-        base = self._base_margin(y)
+        base = self._base_margin(data)
         target = int(budget)
         if state is None:
+            # a sharded margin is per-shard blocks, the layout of the labels,
+            # so a resumed rung keeps its rows on their home shard
             start = 0
             margin0 = torch.full(y.shape, _f32(base), dtype=torch.float32,
                                  device=y.device)
@@ -389,8 +435,8 @@ class GBDTEstimator(Estimator):
                                    device=y.device)
             prev_feat, prev_thresh, prev_leaves = pl["feat"], pl["thresh"], pl["leaves"]
         if target > start:
-            trees, margin0 = _resume_gbdt_core(
-                bins, y, margin0, factor, n_cbins, target, max_depth,
+            trees, margin0 = run_core(
+                _resume_gbdt_core, data, margin0, factor, n_cbins, target, max_depth,
                 *self._hyper(p), start, n_bins=n_cbins, rounds=target - start,
                 max_depth=max_depth)
             m = self._model(trees, edges, factor, n_cbins, base, max_depth)
@@ -428,20 +474,19 @@ class GBDTEstimator(Estimator):
         interface; eager PyTorch compiles nothing to cache."""
         del cache
         ps = [{**self.default_params(), **c} for c in configs]
-        bins, edges, y = data["bins"], data["edges"], data["y"]
         n_bins = int(data["n_bins"])
         coarse = [self._coarsen(n_bins, int(p["max_bin"])) for p in ps]
         pad_bins = max((nc for _, nc in coarse), default=2)
         pad_depth = max((int(p["max_depth"]) for p in ps), default=1)
-        base = self._base_margin(y)
+        base = self._base_margin(data)
         models = []
         for p, (factor, n_cbins) in zip(ps, coarse):
             rounds = int(p["round"])
-            trees = _fit_gbdt_core(
-                bins, y, _f32(base), factor, n_cbins, rounds,
+            trees = run_core(
+                _fit_gbdt_core, data, _f32(base), factor, n_cbins, rounds,
                 int(p["max_depth"]), *self._hyper(p), n_bins=pad_bins,
                 rounds=rounds, max_depth=pad_depth)
-            models.append(self._model(trees, edges, factor, n_cbins, base,
+            models.append(self._model(trees, data["edges"], factor, n_cbins, base,
                                       pad_depth))
         return models
 

@@ -8,7 +8,9 @@ the JAX package's vmapped program does. Every config trains in a stack of
 ``STACK_WIDTH`` slots, alone or fused, so fusing never changes its result
 (see ``STACK_WIDTH``). The Adam step is written out as the reference writes
 it (bias correction from the global step index), in float32, so a resumed
-run continues the exact sequence of a straight one.
+run continues the exact sequence of a straight one. On a row-sharded
+payload (DESIGN.md §3.9) the step is data-parallel: per-shard gradients,
+their mean over shards, one replicated carry.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.data_format import refuse_sharded
+from repro_torch import compat
+from repro_torch.core.data_format import is_sharded_payload
 from repro_torch.core.evaluation import stable_sigmoid
 from repro_torch.core.interface import (
     Estimator,
@@ -98,12 +101,36 @@ def freeze(active, new, old):
     return torch.where(active.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
 
 
-def _adam_logreg(x, y, c, lr, n_steps: Sequence[int], carry, start: int, steps: int):
+def _sharded_grads(x, y, valid, w, b, reg, axis, n_global: int):
+    """The gradients of the sharded loss (DESIGN.md §3.9): ``x`` (S, Rs, F)
+    and ``y``/``valid`` (S, Rs) are the shards' row blocks. Each shard's
+    loss is its valid rows' NLL sum scaled by ``S / n_global``, plus the L2
+    term, so that the MEAN over shards of the per-shard gradients
+    (``psum_tree``, shards added in order) is the global gradient with the
+    regularisation counted once. Every shard differentiates its own copy of
+    the parameters, so its gradient is its own loss's alone."""
+    from repro_torch.distributed.collectives import psum_tree
+
+    s = axis.size
+    ws = w.detach()[None].repeat(s, 1, 1).requires_grad_()      # (S, C, F)
+    bs = b.detach()[None].repeat(s, 1).requires_grad_()         # (S, C)
+    logits = torch.bmm(x, ws.transpose(1, 2)) + bs[:, None, :]  # (S, Rs, C)
+    per = logistic_loss(logits, y[..., None])
+    nll = s * torch.where(valid[..., None], per, torch.zeros_like(per)).sum(1) / n_global
+    loss = (nll + reg * (ws * ws).sum(2)).sum()
+    return psum_tree(list(torch.autograd.grad(loss, (ws, bs))), axis)
+
+
+def _adam_logreg(x, y, c, lr, n_steps: Sequence[int], carry, start: int, steps: int,
+                 *, axis=None, row_valid=None, n_global: int | None = None):
     """Run global steps ``start .. start + steps`` of full-batch Adam for a
     stack of C configs. ``c``/``lr``: (C,) float32; ``carry`` =
     ((w (C, F), b (C,)), (mw, mb), (vw, vb)). Config k's steps past
-    ``n_steps[k]`` leave its carry as it was."""
-    n = x.shape[0]
+    ``n_steps[k]`` leave its carry as it was. With ``axis`` (a
+    :class:`~repro_torch.compat.ShardAxis`) the rows are shard blocks and
+    the gradient is :func:`_sharded_grads`'; the carry stays one copy, the
+    same on every shard."""
+    n = x.shape[0] if n_global is None else n_global
     reg = 0.5 / (c * n)                                  # (C,)
     lr_w = lr[:, None]
     (w, b), (mw, mb), (vw, vb) = carry
@@ -113,13 +140,16 @@ def _adam_logreg(x, y, c, lr, n_steps: Sequence[int], carry, start: int, steps: 
             active = live.at(i)
             if active is False:
                 break                                    # every config is frozen
-            wg = w.detach().requires_grad_()
-            bg = b.detach().requires_grad_()
-            logits = x @ wg.T + bg                       # (R, C)
-            loss = (logistic_loss(logits, y[:, None]).mean(0)
-                    + reg * (wg * wg).sum(1)).sum()
-            grads = torch.autograd.grad(loss, (wg, bg))
-            new = adam_update([w, b], list(grads), [mw, mb], [vw, vb], [lr_w, lr], i)
+            if axis is not None:
+                grads = _sharded_grads(x, y, row_valid, w, b, reg, axis, n)
+            else:
+                wg = w.detach().requires_grad_()
+                bg = b.detach().requires_grad_()
+                logits = x @ wg.T + bg                   # (R, C)
+                loss = (logistic_loss(logits, y[:, None]).mean(0)
+                        + reg * (wg * wg).sum(1)).sum()
+                grads = list(torch.autograd.grad(loss, (wg, bg)))
+            new = adam_update([w, b], grads, [mw, mb], [vw, vb], [lr_w, lr], i)
             (w, b), (mw, mb), (vw, vb) = (
                 [freeze(active, a, o) for a, o in zip(fresh, old)]
                 for fresh, old in zip(new, ([w, b], [mw, mb], [vw, vb])))
@@ -189,9 +219,15 @@ class LogRegEstimator(Estimator):
         holds a slot per config and per unused slot."""
         x = data["x"]
         ps = stacked(ps, idle_slot(ps, c=1.0, lr=0.0))
-        return _adam_logreg(x, data["y"], _f32s([p["c"] for p in ps], x.device),
-                            _f32s([p["lr"] for p in ps], x.device),
-                            [int(p["steps"]) for p in ps], carry, start, steps)
+        args = (_f32s([p["c"] for p in ps], x.device), _f32s([p["lr"] for p in ps], x.device),
+                [int(p["steps"]) for p in ps], carry, start, steps)
+        if not is_sharded_payload(data):
+            return _adam_logreg(x, data["y"], *args)
+        return compat.sharded_call(
+            lambda axis, xs, ys, vs: _adam_logreg(xs, ys, *args, axis=axis, row_valid=vs,
+                                                  n_global=int(data["_n_rows"])),
+            n_shards=int(data["_n_shards"]),
+        )(x, data["y"], data["_shard_valid"])
 
     def train(self, data, params: Mapping[str, Any]) -> LogRegModel:
         return self.train_batched(data, [params])[0]
@@ -199,7 +235,6 @@ class LogRegEstimator(Estimator):
     # ---- adaptive search (DESIGN.md §3.6) -------------------------------
     def train_resumable(self, data, params: Mapping[str, Any], *,
                         budget: int, state: ResumeState | None = None):
-        refuse_sharded(data, "logreg")
         p = {**self.default_params(), **params, "steps": int(budget)}
         x = data["x"]
         target = int(budget)
@@ -235,7 +270,6 @@ class LogRegEstimator(Estimator):
         accepted for the interface; eager PyTorch compiles nothing to
         cache."""
         del cache
-        refuse_sharded(data, "logreg")
         ps = [{**self.default_params(), **c} for c in configs]
         x = data["x"]
         models = []

@@ -9,7 +9,10 @@ config trains alone or fused, so fusing never changes its result. Each
 config draws its initial weights and then its
 minibatch indices from its own generator (:mod:`repro_torch.tabular.draws`),
 whose state is the resume carry's PRNG part; a config past its own step
-count neither draws nor updates.
+count neither draws nor updates. On a row-sharded payload (DESIGN.md §3.9)
+the step is data-parallel: the indices are drawn over the full row range,
+each shard's gradient counts the rows of its own block, and the mean over
+shards updates one replicated carry.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.data_format import refuse_sharded
+from repro_torch import compat
+from repro_torch.core.data_format import is_sharded_payload
 from repro_torch.core.evaluation import stable_sigmoid
 from repro_torch.core.interface import (
     Estimator,
@@ -27,7 +31,7 @@ from repro_torch.core.interface import (
     register_estimator,
 )
 from repro_torch.device import default_device
-from repro_torch.tabular.draws import MLPDraws
+from repro_torch.tabular.draws import MLPDraws, to_device
 from repro_torch.tabular.logreg import (
     STACK_WIDTH,
     Liveness,
@@ -41,6 +45,7 @@ from repro_torch.tabular.logreg import (
 __all__ = ["MLPEstimator", "MLPModel"]
 
 
+
 def _forward(params, x):
     """Logits (C, rows) of a stacked parameter batch on rows ``x`` (C, rows, d)."""
     h = x
@@ -51,36 +56,80 @@ def _forward(params, x):
     return h[..., 0]
 
 
+def _sharded_grads(x, y, idx, params, axis):
+    """The gradients of the sharded minibatch loss (DESIGN.md §3.9): ``x``
+    (S, Rs, d) and ``y`` (S, Rs) are the shards' row blocks and ``idx`` (C,
+    bs) the step's GLOBAL row indices, drawn over the full row range as the
+    unsharded step draws them. Shard s takes the indices in its own block
+    and masks the rest; its loss is its rows' sum scaled by ``S / bs``, so
+    the MEAN over shards of the per-shard gradients (``psum_tree``, shards
+    added in order) is the global batch-mean gradient. Every shard
+    differentiates its own copy of ``params`` (the flat stacked list),
+    stacked as (S·C, ...)."""
+    from repro_torch.distributed.collectives import psum_tree
+
+    s, rs = y.shape
+    c, bs = idx.shape
+    lo = (torch.arange(s, device=x.device) * rs)[:, None, None]
+    own = (idx[None] >= lo) & (idx[None] < lo + rs)                # (S, C, bs)
+    local = torch.clamp(idx[None] - lo, 0, rs - 1)
+    shard = torch.arange(s, device=x.device)[:, None, None]
+    xb, yb = x[shard, local], y[shard, local]                       # (S, C, bs, ·)
+    leaves = [t.detach().repeat((s,) + (1,) * (t.dim() - 1)).requires_grad_()
+              for t in params]
+    logits = _forward(_pairs(leaves), xb.reshape(s * c, bs, -1)).reshape(s, c, bs)
+    per = logistic_loss(logits, yb)
+    loss = (s * torch.where(own, per, torch.zeros_like(per)).sum(-1) / bs).sum()
+    grads = torch.autograd.grad(loss, leaves)
+    return psum_tree([g.reshape((s, c) + g.shape[1:]) for g in grads], axis)
+
+
+def _pairs(ts):
+    """A flat [w0, b0, w1, b1, ...] list as [(w0, b0), (w1, b1), ...]."""
+    return list(zip(ts[0::2], ts[1::2]))
+
+
 def _adam_mlp(x, y, lr, n_steps: Sequence[int], carry, draws, start: int,
-              steps: int, batch_size: int):
+              steps: int, batch_size: int, *, axis=None, n_global: int | None = None):
     """Run global steps ``start .. start + steps`` of minibatch Adam for a
     stack of C configs sharing one architecture. ``lr``: (C,) float32;
     ``carry`` = (params, m, v), each a list of stacked (w (C, d_in, d_out),
-    b (C, d_out)); ``draws[k].batch(i, ...)`` gives config k's rows of step
-    i. Config k's steps past ``n_steps[k]`` draw nothing and change
-    nothing."""
-    n = x.shape[0]
+    b (C, d_out)); ``draws[k].step_batches(...)`` gives config k's rows of
+    its steps. Config k's steps past ``n_steps[k]`` draw nothing and change
+    nothing. With ``axis`` (a :class:`~repro_torch.compat.ShardAxis`) the
+    rows are shard blocks, the indices are drawn over ``n_global`` rows and
+    the gradient is :func:`_sharded_grads`'; the carry stays one copy."""
+    n = x.shape[0] if n_global is None else n_global
     flat = lambda layers: [t for wb in layers for t in wb]  # noqa: E731
-    pairs = lambda ts: list(zip(ts[0::2], ts[1::2]))        # noqa: E731
     params, m, v = (flat(c) for c in carry)
     lrs = [lr.reshape((-1,) + (1,) * (p.dim() - 1)) for p in params]
     live = Liveness(n_steps, x.device)
-    idle = torch.zeros(batch_size, dtype=torch.int64, device=x.device)
+    # every config's rows for the steps it runs here (i < n_steps[k]), drawn
+    # at once and moved in one copy, not a draw and a copy a config a step;
+    # a slot at rest reads row 0
+    idx_all = torch.zeros((steps, len(draws), batch_size), dtype=torch.int64)
+    for k, d in enumerate(draws):
+        count = max(0, min(start + steps, n_steps[k]) - start)
+        if d is not None and count:
+            idx_all[:count, k] = d.step_batches(start, count, n, batch_size)
+    idx_all = to_device(idx_all, x.device)
     with torch.enable_grad():
         for i in range(start, start + steps):
             active = live.at(i)
             if active is False:
                 break
-            idx = torch.stack([d.batch(i, n, batch_size) if d is not None and on else idle
-                               for d, on in zip(draws, live.flags(i))])   # (C, bs)
-            xb, yb = x[idx], y[idx]
-            leaves = [t.detach().requires_grad_() for t in params]
-            loss = logistic_loss(_forward(pairs(leaves), xb), yb).mean(1).sum()
-            grads = list(torch.autograd.grad(loss, leaves))
+            idx = idx_all[i - start]                                        # (C, bs)
+            if axis is not None:
+                grads = _sharded_grads(x, y, idx, params, axis)
+            else:
+                xb, yb = x[idx], y[idx]
+                leaves = [t.detach().requires_grad_() for t in params]
+                loss = logistic_loss(_forward(_pairs(leaves), xb), yb).mean(1).sum()
+                grads = list(torch.autograd.grad(loss, leaves))
             new = adam_update(params, grads, m, v, lrs, i)
             params, m, v = ([freeze(active, a, o) for a, o in zip(fresh, old)]
                             for fresh, old in zip(new, (params, m, v)))
-    return pairs(params), pairs(m), pairs(v)
+    return _pairs(params), _pairs(m), _pairs(v)
 
 
 def _stack(per_config):
@@ -155,6 +204,11 @@ class MLPEstimator(Estimator):
         return {"network": "64_64", "learning_rate": 0.003, "steps": 300, "batch_size": 128, "seed": 0}
 
     @staticmethod
+    def _n_rows(data) -> int:
+        """The payload's row count (a sharded payload's, not a block's)."""
+        return int(data["_n_rows"]) if is_sharded_payload(data) else int(data["x"].shape[0])
+
+    @staticmethod
     def _dims(p: Mapping[str, Any], n_features: int) -> tuple[int, ...]:
         hidden = tuple(int(h) for h in str(p["network"]).split("_"))
         return (n_features,) + hidden + (1,)
@@ -166,9 +220,14 @@ class MLPEstimator(Estimator):
         ps = stacked(ps, idle_slot(ps, learning_rate=0.0))
         lr = torch.tensor(np.asarray([p["learning_rate"] for p in ps], np.float32),
                           device=x.device)
-        bs = int(min(ps[0]["batch_size"], x.shape[0]))
-        return _adam_mlp(x, data["y"], lr, [int(p["steps"]) for p in ps], carry,
-                         stacked(draws, None), start, steps, bs)
+        n = self._n_rows(data)
+        args = (lr, [int(p["steps"]) for p in ps], carry, stacked(draws, None), start,
+                steps, int(min(ps[0]["batch_size"], n)))
+        if not is_sharded_payload(data):
+            return _adam_mlp(x, data["y"], *args)
+        return compat.sharded_call(
+            lambda axis, xs, ys: _adam_mlp(xs, ys, *args, axis=axis, n_global=n),
+            n_shards=int(data["_n_shards"]))(x, data["y"])
 
     def _carry(self, nets):
         """The stack's carry: the configs' parameters, zero moments, and
@@ -187,7 +246,6 @@ class MLPEstimator(Estimator):
     # ---- adaptive search (DESIGN.md §3.6) -------------------------------
     def train_resumable(self, data, params: Mapping[str, Any], *,
                         budget: int, state: ResumeState | None = None, draws=None):
-        refuse_sharded(data, "MLP")
         p = {**self.default_params(), **params, "steps": int(budget)}
         x = data["x"]
         dev = x.device
@@ -236,14 +294,13 @@ class MLPEstimator(Estimator):
         count. ``cache`` is accepted
         for the interface; eager PyTorch compiles nothing to cache."""
         del cache
-        refuse_sharded(data, "MLP")
         ps = [{**self.default_params(), **c} for c in configs]
         x = data["x"]
-        n_feat = int(x.shape[-1])
+        n_feat, n = int(x.shape[-1]), self._n_rows(data)
         dims = self._dims(ps[0], n_feat)
-        bs = int(min(ps[0]["batch_size"], x.shape[0]))
+        bs = int(min(ps[0]["batch_size"], n))
         if any(self._dims(p, n_feat) != dims
-               or int(min(p["batch_size"], x.shape[0])) != bs for p in ps):
+               or int(min(p["batch_size"], n)) != bs for p in ps):
             raise ValueError("mlp fused batch mixes architectures/batch sizes")
         models = []
         for i in range(0, len(ps), STACK_WIDTH):

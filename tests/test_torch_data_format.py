@@ -107,14 +107,19 @@ def test_prepared_cache_dedups_concurrent_builds_and_honours_budget(higgs_small)
 
 
 def test_sharded_placements_are_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        tdf.ShardedPlacement(2)
+    """(Named for the slice that had not ported them.) Sharded placements
+    and payloads now exist: a 2-shard placement is a key, one shard is
+    refused, and a 2-shard payload stacks the rows in two zero-padded
+    blocks on the payload's device."""
+    assert tdf.ShardedPlacement(2) == tdf.ShardedPlacement(2)
     with pytest.raises(ValueError):
         tdf.ShardedPlacement(1)
-    payload = {"y": torch.zeros(3)}
+    payload = {"y": torch.arange(3, dtype=torch.float32)}
     assert tdf.shard_payload(payload, 1) == payload
-    with pytest.raises(NotImplementedError):
-        tdf.shard_payload(payload, 2)
+    sh = tdf.shard_payload(payload, 2)
+    assert torch.equal(sh["y"], torch.tensor([[0.0, 1.0], [2.0, 0.0]]))
+    assert torch.equal(sh["_shard_valid"], torch.tensor([[True, True], [True, False]]))
+    assert (sh["_n_shards"], sh["_n_rows"]) == (2, 3)
 
 
 def test_default_device_needs_cuda_unless_cpu_asked(monkeypatch):

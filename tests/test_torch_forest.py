@@ -23,7 +23,7 @@ import repro_torch.tabular  # noqa: F401,E402  (registers the port's estimators)
 from repro.core.interface import get_estimator as jget  # noqa: E402
 from repro.tabular import forest as jforest  # noqa: E402
 from repro_torch import set_default_device  # noqa: E402
-from repro_torch.core.data_format import DenseMatrix  # noqa: E402
+from repro_torch.core.data_format import DenseMatrix, shard_payload  # noqa: E402
 from repro_torch.core.interface import ResumeState, get_estimator  # noqa: E402
 from repro_torch.tabular import forest  # noqa: E402
 from repro_torch.tabular.draws import FixedForestDraws, forest_tree_draws  # noqa: E402
@@ -162,6 +162,13 @@ def test_port_forest_first_trees_do_not_depend_on_the_count(prepared):
 
 
 def test_forest_sharded_payload_is_refused(prepared):
+    """(Named for the slice that refused it.) A sharded payload now trains:
+    its trees, leaves included, are the unsharded forest's bit for bit
+    (``test_torch_sharded.py`` holds the whole grid)."""
     _, tdata, _ = prepared
-    with pytest.raises(NotImplementedError, match="item 9"):
-        get_estimator("forest").train({**tdata, "_n_shards": 2}, {"n_estimators": 1})
+    params = {"n_estimators": 2, "max_depth": 4, "seed": 3}
+    est = get_estimator("forest")
+    base = est.train(tdata, params)
+    got = est.train(shard_payload(tdata, 3), params)
+    for k in ("feat", "thresh", "leaves"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(base, k))

@@ -191,5 +191,6 @@ def test_kernel_path_refuses_cpu_tensors_and_sharding():
         ops.level_split(*arrays, force="kernel", **kw)
     with pytest.raises(RuntimeError, match="CUDA"):
         ops.histogram(*arrays, n_nodes=2, n_bins=8, force="kernel")
-    with pytest.raises(NotImplementedError):
+    # the sharded branch takes a shard axis over stacked blocks, not a name
+    with pytest.raises(TypeError, match="ShardAxis"):
         ops.level_split(*arrays, axis_name="shards", **kw)

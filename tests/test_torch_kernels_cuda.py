@@ -173,7 +173,7 @@ def test_cuda_wrappers_count_launches_and_check_inputs(cuda):
     reset_launch_counts()
     ops.histogram(*t, n_nodes=2, n_bins=8)
     ops.level_split(*t, n_nodes=2, n_bins=8, lam=1.0, min_child_weight=1.0)
-    assert launch_counts() == {"histogram": 1, "level_split": 1}
+    assert launch_counts() == {"histogram": 1, "level_split": 1, "split_scan": 0}
     with pytest.raises(ValueError, match="int32"):
         ops.histogram(t[0].long(), *t[1:], n_nodes=2, n_bins=8)
 
@@ -512,7 +512,7 @@ def test_cuda_lm_wrappers_count_launches_and_check_inputs(cuda):
     ops.rwkv6(q, q, q, q, q[0, :, 0])
     ops.decode_attention(q[:, :, :1], k, k, 8)     # plain PyTorch: no kernel
     assert launch_counts() == {"flash_attention": 1, "histogram": 0, "level_split": 0,
-                               "rglru": 1, "rwkv6": 1}
+                               "split_scan": 0, "rglru": 1, "rwkv6": 1}
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_cuda(q.transpose(2, 3), k, k)
     with pytest.raises(ValueError, match="float32"):
@@ -657,3 +657,219 @@ def test_cuda_level_split_from_threads_at_other_shapes(cuda):
     assert not any(th.is_alive() for th in threads)
     assert not errors, errors[:3]
     assert not bad
+
+
+# ---------------------------------------------------------------------------
+# The row-sharded level (DESIGN.md §3.9): the shards' partial histograms
+# from one histogram launch, summed in shard order, scanned by the level
+# kernel's split scan alone (split_scan_cuda).
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_nodes,f,nb", [(1, 28, 64), (8, 5, 256), (64, 28, 32), (3, 1, 1)])
+def test_cuda_split_scan_vs_plain(cuda, n_nodes, f, nb):
+    """The split scan on a histogram the caller built: the plain scan's
+    decisions (tie-aware; only the cumsum order differs), masks and
+    bin_limit honoured, counted, and two launches bit-identical."""
+    from repro_torch.kernels.histogram import launch_counts, split_scan_cuda
+
+    t = _fixture(50, 4000, f, nb, n_nodes, cuda)
+    hist = ops._histogram_scatter(*t, n_nodes, nb)
+    kw = dict(lam=1.0, min_child_weight=1.0, n_bins=nb)
+    before = launch_counts()["split_scan"]
+    got = split_scan_cuda(hist, lam=1.0, min_child_weight=1.0)
+    assert launch_counts()["split_scan"] == before + 1
+    _assert_tie_aware(hist, (None, *got), kw)
+    again = split_scan_cuda(hist, lam=1.0, min_child_weight=1.0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # the fused level kernel's scan on the same histogram: the same pass
+    fused = ops.level_split(*t, n_nodes=n_nodes, n_bins=nb, lam=1.0, min_child_weight=1.0)
+    mine = split_scan_cuda(fused[0], lam=1.0, min_child_weight=1.0)
+    assert all(torch.equal(a, b) for a, b in zip(mine, fused[1:]))
+    mask = torch.arange(f, device=cuda) % 2 == 0
+    masked = split_scan_cuda(hist, lam=1.0, min_child_weight=1.0, feat_mask=mask,
+                             bin_limit=max(1, nb // 2))
+    _assert_tie_aware(hist, (None, *masked),
+                      dict(kw, feat_mask=mask, bin_limit=max(1, nb // 2)))
+    with pytest.raises(ValueError, match="n_nodes, F, B, 2"):
+        split_scan_cuda(hist[..., :1], lam=1.0, min_child_weight=1.0)
+
+
+def _shard_blocks(t, n_shards):
+    """Rows (R, ·) as zero-padded (S, ceil(R/S), ·) blocks and their mask."""
+    from repro_torch.core.data_format import shard_payload
+
+    sh = shard_payload(dict(zip(("bins", "g", "h", "node"), t)), n_shards)
+    return [sh[k] for k in ("bins", "g", "h", "node", "_shard_valid")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [2, 4, 8])
+@pytest.mark.parametrize("r,f,nb,nn", [(30001, 28, 64, 8), (20000, 7, 256, 64)])
+def test_cuda_sharded_level_vs_unsharded(cuda, n_shards, r, f, nb, nn):
+    """The sharded level on the card against the unsharded one, direct and
+    by subtraction: histograms within float tolerance and decisions
+    tie-aware on real g/h; bit-identical histograms and decisions on
+    integer g/h; every launch counted; two runs bit-identical."""
+    from repro_torch.compat import sharded_call
+    from repro_torch.kernels.histogram import launch_counts
+
+    kw = dict(n_nodes=nn, n_bins=nb, lam=1.0, min_child_weight=1.0)
+    for integer in (False, True):
+        t = _fixture(60 + n_shards, r, f, nb, nn, cuda, integer=integer)
+        parent = _parent(t, nn, nb)
+        blocks = _shard_blocks(t, n_shards)
+        for ph in (None, parent):
+            base = ops.level_split(*t, parent_hist=ph, **kw)
+            before = launch_counts()
+            run = sharded_call(
+                lambda axis, b, g, h, node, valid: ops.level_split(
+                    b, g, h, node, axis_name=axis, row_valid=valid, parent_hist=ph, **kw),
+                n_shards=n_shards)
+            got = run(*blocks)
+            after = launch_counts()
+            assert after["histogram"] == before["histogram"] + 1
+            assert after["split_scan"] == before["split_scan"] + 1
+            assert after["level_split"] == before["level_split"]
+            assert all(torch.equal(a, b) for a, b in zip(got, run(*blocks)))
+            if integer:
+                assert all(torch.equal(a, b) for a, b in zip(got, base))
+            else:
+                torch.testing.assert_close(got[0], base[0], atol=1e-4, rtol=1e-5)
+                _assert_tie_aware(base[0], got,
+                                  dict(lam=1.0, min_child_weight=1.0, n_bins=nb))
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_gbdt_and_forest_match_unsharded(cuda):
+    """Whole sharded fits on the card: the forest's trees (integer sums)
+    equal the unsharded ones bit for bit, the GBDT's decisions match on
+    this data and its leaves agree to float rounding."""
+    import repro_torch.tabular  # noqa: F401  (registers the estimators)
+    from repro_torch.core import convert, get_estimator
+    from repro_torch.core.data_format import shard_payload
+    from repro_torch.data.synthetic import make_higgs_like
+
+    data = convert(make_higgs_like(20000, seed=4), "quantized_bins", max_bins=64,
+                   device=cuda)
+    forest = get_estimator("forest")
+    fp = {"n_estimators": 3, "max_depth": 6, "seed": 2}
+    base = forest.train(data, fp)
+    for n in (2, 4):
+        got = forest.train(shard_payload(data, n), fp)
+        for k in ("feat", "thresh", "leaves"):
+            np.testing.assert_array_equal(getattr(got, k), getattr(base, k))
+    gbdt = get_estimator("gbdt")
+    gp = {"round": 3, "max_depth": 4, "max_bin": 64}
+    base = gbdt.train(data, gp)
+    got = gbdt.train(shard_payload(data, 4), gp)
+    np.testing.assert_array_equal(got.feat, base.feat)
+    np.testing.assert_array_equal(got.thresh, base.thresh)
+    np.testing.assert_allclose(got.leaves, base.leaves, rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 launched from several threads at other (Dk, Dv) and staging modes:
+# each launch opts the kernel into the device's whole shared memory, so no
+# thread can lower the limit another thread's launch needs.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_rwkv6_from_threads_at_other_shapes(cuda):
+    """8 threads launch RWKV-6 at once at (Dk, Dv) whose launches need other
+    shared memory, with and without the cp.async staging (Dk=12 rows are
+    not 16-byte aligned): every launch succeeds and gives what it gives
+    alone."""
+    import sys
+    import threading
+
+    shapes = [(64, 64, "bfloat16"), (128, 64, "float32"), (12, 20, "float32"),
+              (32, 200, "bfloat16"), (256, 40, "float32")]
+    cases = []
+    for j, (dk, dv, dtype) in enumerate(shapes):
+        b, h, t = 2, 2, 70
+        r, k, v = _lm(70 + j, (b, h, t, dk), (b, h, t, dk), (b, h, t, dv), device=cuda,
+                      dtype=getattr(torch, dtype))
+        w, u = _lm(80 + j, (b, h, t, dk), (h, dk), device=cuda)
+        cases.append((r, k, v, w, u))
+    alone = [ops.rwkv6(*c, force="kernel") for c in cases]
+    errors, bad = [], []
+
+    def worker(j):
+        try:
+            c = cases[j % len(cases)]
+            for _ in range(30):
+                got = ops.rwkv6(*c, force="kernel")
+                if not all(torch.equal(a, b) for a, b in zip(got, alone[j % len(cases)])):
+                    bad.append(j)
+        except Exception as exc:        # recorded, asserted below
+            errors.append(repr(exc))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=worker, args=(j,)) for j in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    torch.cuda.synchronize()
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors[:3]
+    assert not bad
+
+
+# ---------------------------------------------------------------------------
+# The port's draws are made on a CPU generator and moved: the same bits on
+# the card as on the CPU, and an MLP rung trained on the card resumes on
+# the CPU.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_draws_are_the_cpu_draws(cuda):
+    from repro_torch import configs
+    from repro_torch.models import init_params
+    from repro_torch.tabular.draws import MLPDraws, forest_tree_draws
+
+    for t in (0, 7):
+        wc, pc = forest_tree_draws(11, t, 5000, 28, "cpu")
+        wg, pg = forest_tree_draws(11, t, 5000, 28, cuda)
+        assert wg.is_cuda and torch.equal(wg.cpu(), wc) and torch.equal(pg.cpu(), pc)
+    a, b = MLPDraws(5, "cpu"), MLPDraws(5, cuda)
+    for (wa, ba), (wb, bb) in zip(a.init((28, 64, 1)), b.init((28, 64, 1))):
+        assert wb.is_cuda and torch.equal(wb.cpu(), wa) and torch.equal(bb.cpu(), ba)
+    for i in range(3):
+        assert torch.equal(b.batch(i, 1000, 32).cpu(), a.batch(i, 1000, 32))
+    assert np.array_equal(a.state(), b.state())
+    cfg = configs.get_smoke_config("rwkv6-7b")
+    pc, pg = init_params(cfg, seed=3, device="cpu"), init_params(cfg, seed=3, device=cuda)
+    sc, sg = pc.state_dict(), pg.state_dict()
+    assert sc.keys() == sg.keys()
+    for k in sc:
+        assert sg[k].is_cuda and torch.equal(sg[k].cpu(), sc[k]), k
+
+
+@pytest.mark.cuda
+def test_cuda_mlp_rung_resumes_on_the_cpu(cuda):
+    """An MLP rung trained on the card (its carry and generator state in the
+    resume payload) resumes on the CPU, and the model matches a straight
+    CPU fit to float rounding (the card's and the CPU's matmuls add in
+    other orders)."""
+    import repro_torch.tabular  # noqa: F401  (registers the estimators)
+    from repro_torch.core import convert, get_estimator
+    from repro_torch.core.interface import ResumeState
+    from repro_torch.data.synthetic import make_higgs_like
+
+    raw = make_higgs_like(3000, seed=6)
+    est = get_estimator("mlp")
+    params = {"network": "32_32", "learning_rate": 0.003, "steps": 60, "seed": 4}
+    on_card = convert(raw, "dense_rows", device=cuda)
+    on_cpu = convert(raw, "dense_rows", device="cpu")
+    _, state = est.train_resumable(on_card, params, budget=30)
+    wire = ResumeState.from_wire(state.to_wire())
+    resumed, _ = est.train_resumable(on_cpu, params, budget=60, state=wire)
+    straight = est.train(on_cpu, params)
+    np.testing.assert_allclose(resumed.predict_proba(raw.x), straight.predict_proba(raw.x),
+                               rtol=0, atol=1e-4)

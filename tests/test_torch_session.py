@@ -25,6 +25,7 @@ from repro_torch.core import (  # noqa: E402
     SearchSpec,
     Session,
 )
+from repro_torch.core.data_format import ShardedPlacement  # noqa: E402
 
 set_default_device("cpu")
 
@@ -91,5 +92,8 @@ def test_port_session_paths_agree(higgs_small, options):
 
 
 def test_sharded_pool_is_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        LocalExecutorPool(2, n_shards=2)
+    """(Named for the slice that had not ported it.) A 2-shard pool now
+    resolves its conversions under one sharded placement."""
+    pool = LocalExecutorPool(2, n_shards=2)
+    (token,) = pool.prepare_placements()
+    assert isinstance(token, ShardedPlacement) and token.n_shards == 2
