@@ -3,10 +3,11 @@ package's ``configs/``.
 
 ``get_config(arch_id)`` returns the FULL ArchConfig as assigned;
 ``get_smoke_config(arch_id)`` a reduced config of the same family for CPU
-tests. This slice of the port carries the two families whose layers run
-the LM kernels: RecurrentGemma-9B (flash attention and RG-LRU) and
-RWKV6-7B (RWKV-6). The other architectures of the JAX package raise
-NotImplementedError until their modules are ported.
+tests. The port carries the dense transformers (Qwen2-1.5B, TinyLlama-1.1B,
+Gemma-2B, Gemma3-12B: flash attention), RecurrentGemma-9B (flash attention
+and RG-LRU) and RWKV6-7B (RWKV-6). The other architectures of the JAX
+package (mixture-of-experts, whisper, InternVL) raise NotImplementedError
+until their modules are ported.
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ ARCH_IDS = (
     "arctic_480b",
     "internvl2_1b",
 )
-PORTED = ("rwkv6_7b", "recurrentgemma_9b")
+PORTED = ("qwen2_1_5b", "gemma3_12b", "tinyllama_1_1b", "gemma_2b", "rwkv6_7b",
+          "recurrentgemma_9b")
 
 # canonical external ids (dashes) → module names
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}

@@ -29,5 +29,5 @@ def smoke_config() -> ArchConfig:
         vocab=512, d_model=64, n_heads=4, n_kv_heads=1, head_dim=16,
         d_ff=128, pattern=(rec, rec, attn), repeats=2, tail=(rec, rec),
         ffn_act="geglu", norm="rmsnorm", embed_scale=True,
-        lru_width=64, conv_width=4, tie_embeddings=True,
+        lru_width=64, conv_width=4, tie_embeddings=True, loss_chunk=64,
     )

@@ -20,5 +20,5 @@ def smoke_config() -> ArchConfig:
         name="rwkv6-smoke",
         vocab=512, d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
         d_ff=224, pattern=(LayerSpec(kind="rwkv", ffn="none"),), repeats=2,
-        norm="layernorm", rwkv_head_size=16, tie_embeddings=False,
+        norm="layernorm", rwkv_head_size=16, tie_embeddings=False, loss_chunk=64,
     )

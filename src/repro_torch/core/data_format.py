@@ -612,6 +612,21 @@ def _dense_cols(data: DenseMatrix, device=None):
     return {"xt": _on(data.x.T, device), "y": _on(data.y, device)}
 
 
+def _bin_ids(edges: np.ndarray, xt: np.ndarray) -> np.ndarray:
+    """(n_rows, n_feat) int32: ``np.searchsorted(edges[:, f], xt[f],
+    side="left")`` for every feature f, in one torch call over both in
+    their common dtype, as numpy compares them. numpy orders NaN after
+    every number and torch's search does not, so edges with a NaN take
+    numpy's loop."""
+    if np.isnan(edges).any():
+        return np.stack([np.searchsorted(edges[:, f], xt[f], side="left")
+                         for f in range(xt.shape[0])], axis=1).astype(np.int32)
+    dt = np.result_type(edges, xt)
+    ids = torch.searchsorted(torch.from_numpy(np.ascontiguousarray(edges.T, dt)),
+                             torch.from_numpy(xt.astype(dt)), side="left", out_int32=True)
+    return ids.T.contiguous().numpy()
+
+
 @register_converter("quantized_bins")
 def _quantized_bins(data: DenseMatrix, max_bins: int = 256, device=None):
     """Histogram-quantized column bins — GBDT (XGBoost hist / LightGBM) style.
@@ -625,14 +640,20 @@ def _quantized_bins(data: DenseMatrix, max_bins: int = 256, device=None):
     """
     if max_bins < 2:
         raise ValueError(f"max_bins must be >= 2, got {max_bins}")
-    x = data.x
-    n_rows, n_feat = x.shape
-    n_bins = min(max_bins, max(2, n_rows))
+    xt = np.ascontiguousarray(data.x.T)        # (n_feat, n_rows): a feature a row
+    n_bins = min(max_bins, max(2, xt.shape[1]))
     qs = np.linspace(0.0, 1.0, n_bins + 1)[1:-1]
-    edges = np.quantile(x, qs, axis=0)  # (n_bins-1, n_feat)
-    binned = np.empty((n_rows, n_feat), dtype=np.int32)
-    for f in range(n_feat):
-        binned[:, f] = np.searchsorted(edges[:, f], x[:, f], side="left")
+    # np.quantile(x, qs, axis=0) from sorted columns, which skips its
+    # selection per quantile: the order statistics are the same values,
+    # bit for bit but for the sign of a zero, so a column holding -0.0
+    # takes np.quantile's own selection
+    xs = np.sort(xt, axis=1)
+    edges = np.quantile(xs, qs, axis=1)                   # (n_bins-1, n_feat)
+    neg0 = (np.signbit(xs) & (xs == 0)).any(axis=1)
+    if neg0.any():
+        edges[:, neg0] = np.quantile(xt[neg0], qs, axis=1)
+    del xs
+    binned = _bin_ids(edges, xt)
     return {
         "bins": _on(binned, device),
         "edges": _on(edges.T.astype(np.float32), device),  # (n_feat, n_bins-1)

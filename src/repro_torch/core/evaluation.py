@@ -6,8 +6,9 @@ Here every model is scored where it was trained, right after training:
 * **Batched device inference** — the tree families route ALL rounds'
   heap-layout trees as a gather chain on the device holding the validation
   rows (``TrainedModel.predict_proba_device`` / ``predict_proba_batched``).
-  PyTorch runs eagerly, so there is no compiled predictor to keep; the
-  :func:`predict_compile_cache` stays as the counter the Session reports.
+  Each family's predictor for one signature (the reference's keys, e.g.
+  ``("logreg.predict", n_models, x.shape)``) is built once and kept in
+  :func:`predict_compile_cache`, whose counters the Session reports.
 
 * **Executor-side scoring** — the pools call :func:`evaluate_models` right
   after training: validation data is resolved ONCE per (fingerprint, eval

@@ -14,11 +14,13 @@ program. This module owns the three driver-side pieces:
   Member tasks are re-costed with AMORTIZED per-task estimates (the
   CostModel learns a separate law for batched execution), and the batch's
   cost is their sum.
-* :class:`CompileCache` is the process-wide compiled-program cache keyed on
-  the batch's static-shape signature (padded structural maxima + batch size
-  + data shape). The first batch of a signature compiles; later batches of
-  the same shape reuse the jitted program — hit accounting surfaces in
-  ``SearchStats``.
+* :class:`CompileCache` is the process-wide program cache keyed on the
+  batch's static-shape signature (padded structural maxima + batch size +
+  data shape), with the reference's keys. PyTorch runs eagerly, so an entry
+  is the per-signature program a family builds: the callable bound to that
+  signature. The first batch of a
+  signature builds it; later batches of the same shape reuse it — hit
+  accounting surfaces in ``SearchStats``.
 * :func:`split_for_balance` splits bottleneck batches at fuse-bucket
   boundaries so LPT/:func:`~repro_torch.core.scheduler.replan` can trade fusion
   efficiency against load balance (a fused batch is atomic on one executor).
@@ -32,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from collections import OrderedDict
 from typing import Callable, Hashable, Sequence
 
@@ -247,10 +250,11 @@ DEFAULT_PROGRAM_NBYTES = 1 << 20
 
 
 class CompileCache:
-    """Process-wide cache of compiled batched programs, keyed on the static
-    shape signature. ``get`` returns the cached callable or builds (and
-    counts a miss for) a new one; reusing the SAME jitted object is what
-    makes later batches of a signature skip XLA compilation entirely.
+    """Process-wide cache of batched programs, keyed on the static shape
+    signature. ``get`` returns the cached callable or builds (and counts a
+    miss for) a new one; a hit reuses the SAME program object.
+    ``build_seconds`` sums the builders' wall
+    time: what the hits saved, a miss at a time.
 
     Governance mirrors :class:`repro_torch.core.data_format.PreparedDataCache`
     (DESIGN.md §3.5): an optional byte budget with LRU eviction (entries
@@ -270,6 +274,7 @@ class CompileCache:
         self.misses = 0
         self.evictions = 0
         self.bytes_built = 0
+        self.build_seconds = 0.0
         self._bytes = 0
         self._budget = budget_bytes
         self._pins: dict[Hashable, int] = {}
@@ -286,9 +291,11 @@ class CompileCache:
                 return got[0]
             self.misses += 1
             self._ledger.add("misses")
-        built = builder()          # build outside the lock: compiles are slow
+        t0 = time.perf_counter()
+        built = builder()          # build outside the lock: builds may be slow
         weight = int(nbytes) if nbytes is not None else DEFAULT_PROGRAM_NBYTES
         with self._lock:
+            self.build_seconds += time.perf_counter() - t0
             got = self._fns.get(key)
             if got is not None:    # lost the insert race; keep the first
                 return got[0]
@@ -371,6 +378,7 @@ class CompileCache:
             self.misses = 0
             self.evictions = 0
             self.bytes_built = 0
+            self.build_seconds = 0.0
             self._bytes = 0
             self._pins.clear()
             self._ledger.clear()

@@ -18,6 +18,20 @@ On a CUDA tensor the kernel runs or the call raises: nothing falls back.
 Unlike the TPU dispatch, which sends ragged shapes to the plain path, the
 CUDA kernels take every shape (any sequence length, T=1 included), so on
 the card nothing takes the plain path.
+
+Gradients. The CUDA kernels are forward kernels: a launch through ctypes
+records no autograd graph. When autograd needs a gradient (grad mode on and
+an input that requires grad), ``attention``, ``rglru`` and ``rwkv6`` run
+the kernel inside :class:`_KernelGradByPlain`, whose backward recomputes
+the plain differentiable version on the saved inputs and back-propagates
+through it: what the JAX package differentiates, which has no backward for
+its Pallas kernels either. No kernel output comes back without a
+``grad_fn`` while an input requires grad (:func:`_launch` raises if one
+would). The plain path on the card (``force="ref"``) goes through the same
+Function, its forward the plain version itself, so that it too keeps only
+its inputs from the forward to the backward: kept, the (B, H, T, T) scores
+of plain attention would hold 2 GiB a layer of TinyLlama-1.1B's train step
+at batch 4 × 2,048. On the CPU the plain path's own autograd runs.
 """
 from __future__ import annotations
 
@@ -39,6 +53,51 @@ def _use_kernel(force, t: torch.Tensor) -> bool:
     return force is None and t.is_cuda
 
 
+def _needs_grad(*inputs) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in inputs)
+
+
+class _KernelGradByPlain(torch.autograd.Function):
+    """Forward: ``kernel(*inputs)``. Backward: ``plain(*inputs)`` recomputed
+    under grad mode on the saved inputs and differentiated. Both return a
+    tensor or a tuple of tensors of the same structure; ``None`` inputs
+    (an absent initial state) get no gradient."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, *inputs):
+        ctx.plain = plain
+        ctx.save_for_backward(*inputs)
+        return kernel(*inputs)
+
+    @staticmethod
+    def backward(ctx, *grad_outs):
+        leaves = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
+        with torch.enable_grad():
+            outs = ctx.plain(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grad_outs)
+                 if g is not None and o.requires_grad]
+        wrt = [t for t in leaves if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                         [g for _, g in pairs], allow_unused=True))
+        return (None, None) + tuple(
+            next(grads) if t is not None and t.requires_grad else None for t in leaves)
+
+
+def _launch(kernel, plain, *inputs):
+    """``kernel(*inputs)``, through :class:`_KernelGradByPlain` when
+    autograd needs a gradient of it (only the inputs are kept for the
+    backward, which differentiates ``plain``)."""
+    if not _needs_grad(*inputs):
+        return kernel(*inputs)
+    out = _KernelGradByPlain.apply(kernel, plain, *inputs)
+    if any(o.grad_fn is None for o in (out if isinstance(out, tuple) else (out,))):
+        raise RuntimeError("a kernel output has no grad_fn while its inputs require grad")
+    return out
+
+
 def attention(q, k, v, *, causal=True, window=None, scale=None,
               logit_softcap=None, force=None, matmul_dtype="float32"):
     """Multi-head attention (GQA via head-count ratio). See
@@ -50,15 +109,21 @@ def attention(q, k, v, *, causal=True, window=None, scale=None,
     JAX package's ``block_q``/``block_k`` tiling arguments have no
     counterpart here: the kernel's tiles are fixed and it takes any
     sequence length."""
+    def plain(q, k, v):
+        return _ref.attention_ref(
+            q, k, v, causal=causal, window=window, scale=scale,
+            logit_softcap=logit_softcap, matmul_dtype=matmul_dtype)
+
     if _use_kernel(force, q):
         from repro_torch.kernels.flash_attention import flash_attention_cuda
 
-        return flash_attention_cuda(
-            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
-            window=window, scale=scale, logit_softcap=logit_softcap)
-    return _ref.attention_ref(
-        q, k, v, causal=causal, window=window, scale=scale,
-        logit_softcap=logit_softcap, matmul_dtype=matmul_dtype)
+        def kernel(q, k, v):
+            return flash_attention_cuda(
+                q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+                window=window, scale=scale, logit_softcap=logit_softcap)
+
+        return _launch(kernel, plain, q, k, v)
+    return _launch(plain, plain, q, k, v) if q.is_cuda else plain(q, k, v)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window=None, scale=None,
@@ -73,14 +138,21 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=None, scale=None,
 
 def rglru(x, input_gate, rec_gate, a_param, h0=None, *, c=8.0, force=None):
     """RG-LRU recurrence. See ``rglru_ref``; returns ``(y, h_T)``."""
+    def plain(x, input_gate, rec_gate, a_param, h0):
+        return _ref.rglru_ref(x, input_gate, rec_gate, a_param, h0, c=c)
+
     if _use_kernel(force, x):
         from repro_torch.kernels.rglru import rglru_cuda
 
-        return rglru_cuda(
-            x.contiguous(), input_gate.contiguous(), rec_gate.contiguous(),
-            a_param.float().contiguous(),
-            None if h0 is None else h0.float().contiguous(), c=c)
-    return _ref.rglru_ref(x, input_gate, rec_gate, a_param, h0, c=c)
+        def kernel(x, input_gate, rec_gate, a_param, h0):
+            return rglru_cuda(
+                x.contiguous(), input_gate.contiguous(), rec_gate.contiguous(),
+                a_param.float().contiguous(),
+                None if h0 is None else h0.float().contiguous(), c=c)
+
+        return _launch(kernel, plain, x, input_gate, rec_gate, a_param, h0)
+    args = (x, input_gate, rec_gate, a_param, h0)
+    return _launch(plain, plain, *args) if x.is_cuda else plain(*args)
 
 
 def rwkv6(r, k, v, w, u, s0=None, *, force=None):
@@ -91,10 +163,15 @@ def rwkv6(r, k, v, w, u, s0=None, *, force=None):
     if _use_kernel(force, r):
         from repro_torch.kernels.rwkv6 import rwkv6_cuda
 
-        return rwkv6_cuda(
-            r.contiguous(), k.contiguous(), v.contiguous(), w.float().contiguous(),
-            u.float().contiguous(), None if s0 is None else s0.float().contiguous())
-    return _ref.rwkv6_ref(r, k, v, w, u, s0)
+        def kernel(r, k, v, w, u, s0):
+            return rwkv6_cuda(
+                r.contiguous(), k.contiguous(), v.contiguous(), w.float().contiguous(),
+                u.float().contiguous(), None if s0 is None else s0.float().contiguous())
+
+        return _launch(kernel, _ref.rwkv6_ref, r, k, v, w, u, s0)
+    args = (r, k, v, w, u, s0)
+    return _launch(_ref.rwkv6_ref, _ref.rwkv6_ref, *args) if r.is_cuda else \
+        _ref.rwkv6_ref(*args)
 
 
 def _histogram_scatter(bins, grad, hess, node, n_nodes, n_bins):

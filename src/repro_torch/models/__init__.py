@@ -1,5 +1,5 @@
-"""The LM stack for serving: RecurrentGemma (RG-LRU + local attention) and
-RWKV-6 run through the port's kernels."""
+"""The LM stack: the dense transformers, RecurrentGemma (RG-LRU + local
+attention) and RWKV-6, served and trained through the port's kernels."""
 from repro_torch.models.transformer import (
     ArchConfig,
     LayerSpec,
@@ -10,8 +10,11 @@ from repro_torch.models.transformer import (
     init_decode_state,
     init_params,
     layer_specs,
+    lm_loss,
     params_from_reference,
+    params_to_reference,
     prefill,
+    train_loss,
 )
 
 __all__ = [
@@ -24,6 +27,9 @@ __all__ = [
     "init_decode_state",
     "init_params",
     "layer_specs",
+    "lm_loss",
     "params_from_reference",
+    "params_to_reference",
     "prefill",
+    "train_loss",
 ]

@@ -32,7 +32,9 @@ class Init:
     CPU and CUDA generators are different algorithms) and the host holds one
     tensor at a time. The draws are PyTorch's, not ``jax.random``'s: weights
     carried from the JAX package go through
-    ``transformer.params_from_reference`` instead."""
+    ``transformer.params_from_reference`` instead. On the ``meta`` device
+    nothing is drawn or allocated: the tensors carry shapes and dtypes
+    only."""
 
     def __init__(self, generator: torch.Generator, dtype=torch.float32, device=None):
         self.generator = generator
@@ -40,9 +42,15 @@ class Init:
         self.device = torch.device(device) if device is not None else generator.device
 
     def normal(self, shape, stddev: float | None = None) -> torch.Tensor:
+        if self.device.type == "meta":
+            return torch.empty(shape, dtype=self.dtype, device="meta")
         std = stddev if stddev is not None else shape[0] ** -0.5
-        x = torch.randn(shape, generator=self.generator, dtype=torch.float32).mul_(std)
-        return x.to(device=self.device, dtype=self.dtype)
+        # bound for the card, drawn into pinned memory: its copy runs while
+        # the next tensor is drawn, and the scaling (float32, exact on
+        # either device) runs there
+        x = torch.randn(shape, generator=self.generator, dtype=torch.float32,
+                        pin_memory=self.device.type == "cuda")
+        return x.to(self.device, non_blocking=True).mul_(std).to(self.dtype)
 
     def zeros(self, shape) -> torch.Tensor:
         return torch.zeros(shape, dtype=self.dtype, device=self.device)

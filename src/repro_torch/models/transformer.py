@@ -1,23 +1,33 @@
-"""The LM stack for serving: config, init, prefill and decode.
+"""The LM stack: config, init, training forward and loss, prefill and decode.
 
-The port of the JAX package's ``models/transformer.py``, as far as serving
-needs it:
+The port of the JAX package's ``models/transformer.py``:
   * An architecture is a repeated PATTERN of layer specs plus an optional
     tail (recurrentgemma: (rec, rec, attn) × 12 + (rec, rec)). The JAX
     package stacks each pattern position's parameters over the repeats and
-    scans them; here the layers are an ``nn.ModuleList`` in order, layer
+    scans them; here the layers are applied in order, layer
     ``i·len(pattern) + j`` being repeat ``i`` of pattern position ``j``, the
     tail after them (:func:`layer_specs`).
+  * Weights come in two layouts. :class:`LMParams` (an ``nn.Module``, one
+    :class:`ParamTree` a layer) is what serving holds. The JAX package's
+    tree (``blocks/b{j}`` stacked over the repeats, then ``tail{j}``, as
+    nested dicts of tensors) is what training and checkpoints hold: the
+    optimizers update it leaf by leaf as the reference does (Adafactor's
+    factored moments and its update clipping see a stacked leaf whole), and
+    a checkpoint of it is the reference's. Every function here takes
+    either; :func:`params_from_reference` and :func:`params_to_reference`
+    convert.
+  * :func:`train_loss` is the training forward (:func:`forward_hidden`,
+    which records autograd's graph when grad mode is on) and the chunked
+    cross-entropy :func:`lm_loss`, in which a (B, chunk, V) logits tensor
+    is the largest that exists.
   * The decode state (KV caches, recurrent states) is a list with one dict
     per layer, updated in place by :func:`prefill` and :func:`decode_step`.
   * ``force`` is threaded down to ``ops`` so a caller can run the plain
     path on the card (``force="ref"``).
-  * :func:`params_from_reference` carries the JAX package's weights over.
 
 Not ported yet (each raises NotImplementedError where a config needs it):
 mixture-of-experts FFNs, cross-attention and the encoder (whisper), the
-vision and audio stubs, learned positions, and the training loss
-(``train_loss``/``lm_loss``).
+vision and audio stubs and learned positions.
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ import dataclasses
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import default_device
 from repro_torch.models import recurrent
@@ -41,8 +52,8 @@ from repro_torch.models.layers import Init, ParamTree, ffn_apply, init_ffn, init
     layernorm, rmsnorm
 
 __all__ = ["LayerSpec", "ArchConfig", "LMParams", "init_params", "params_from_reference",
-           "forward_hidden", "init_decode_state", "decode_step", "prefill",
-           "count_params", "layer_specs"]
+           "params_to_reference", "forward_hidden", "lm_loss", "train_loss",
+           "init_decode_state", "decode_step", "prefill", "count_params", "layer_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +101,7 @@ class ArchConfig:
     # --- numerics ---
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    loss_chunk: int = 512              # sequence chunk of the cross-entropy
 
     @property
     def n_layers(self) -> int:
@@ -197,7 +209,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> LMParams:
 
 def params_from_reference(cfg: ArchConfig, tree: dict, device=None) -> LMParams:
     """The JAX package's parameter pytree (``repro.models.init_params``), as
-    nested dicts of numpy arrays, as the port's weights on ``device``.
+    nested dicts of numpy arrays or tensors, as the port's weights on
+    ``device``.
 
     ``blocks/b{j}`` holds pattern position ``j`` stacked over the repeats:
     its leaf ``[i]`` becomes layer ``i·len(pattern) + j``; ``tail{j}``
@@ -208,6 +221,9 @@ def params_from_reference(cfg: ArchConfig, tree: dict, device=None) -> LMParams:
     def tensors(node, index=None):
         if isinstance(node, dict):
             return {k: tensors(v, index) for k, v in node.items()}
+        if isinstance(node, torch.Tensor):
+            t = node if index is None else node[index]
+            return t.detach().to(dev, copy=True)
         arr = np.asarray(node if index is None else node[index])
         return torch.from_numpy(np.array(arr)).to(dev)
 
@@ -219,8 +235,76 @@ def params_from_reference(cfg: ArchConfig, tree: dict, device=None) -> LMParams:
     return LMParams(tensors(tree["embed"]), layers, tensors(tree["final_norm"]), lm_head)
 
 
-def count_params(params: LMParams) -> int:
-    return sum(p.numel() for p in params.parameters())
+def _as_dict(node) -> dict:
+    """A ParamTree (or dict) as nested dicts of detached tensors."""
+    if isinstance(node, ParamTree):
+        out = {k: v.detach() for k, v in node._parameters.items()}
+        out.update({k: _as_dict(m) for k, m in node._modules.items()})
+        return out
+    return {k: _as_dict(v) if isinstance(v, (dict, ParamTree)) else v.detach()
+            for k, v in node.items()}
+
+
+def _stack(trees: list[dict]) -> dict:
+    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
+            else torch.stack([t[k] for t in trees]) for k, v in trees[0].items()}
+
+
+def params_to_reference(cfg: ArchConfig, params: LMParams) -> dict:
+    """The inverse of :func:`params_from_reference`: the JAX package's tree
+    (``embed``, ``blocks/b{j}`` stacked over the repeats, ``tail{j}``,
+    ``final_norm``, ``lm_head`` when untied) as nested dicts of tensors on
+    the weights' device."""
+    if isinstance(params, dict):
+        return params
+    layers = [_as_dict(p) for p in params.layers]
+    n_pat, n_stacked = len(cfg.pattern), len(cfg.pattern) * cfg.repeats
+    tree = {"embed": params.embed.detach(),
+            "blocks": {f"b{j}": _stack(layers[j:n_stacked:n_pat]) for j in range(n_pat)}}
+    for j in range(len(cfg.tail)):
+        tree[f"tail{j}"] = layers[n_stacked + j]
+    tree["final_norm"] = _as_dict(params.final_norm)
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = params.lm_head.detach()
+    return tree
+
+
+def _unbind(node, repeats: int) -> list:
+    """A stacked subtree as ``repeats`` per-layer subtrees of views (one
+    ``unbind`` a leaf, so a backward stacks each leaf's gradient once)."""
+    if isinstance(node, dict):
+        subs = {k: _unbind(v, repeats) for k, v in node.items()}
+        return [{k: sub[i] for k, sub in subs.items()} for i in range(repeats)]
+    return list(torch.unbind(node))
+
+
+class _TreeView:
+    """The JAX package's tree read as :class:`LMParams` reads: ``embed``,
+    ``layers`` in order, ``final_norm``, ``lm_head``."""
+
+    def __init__(self, cfg: ArchConfig, tree: dict):
+        self.embed = tree["embed"]
+        per_pos = [_unbind(tree["blocks"][f"b{j}"], cfg.repeats)
+                   for j in range(len(cfg.pattern))]
+        self.layers = [pos[i] for i in range(cfg.repeats) for pos in per_pos]
+        self.layers += [tree[f"tail{j}"] for j in range(len(cfg.tail))]
+        self.final_norm = tree["final_norm"]
+        self.lm_head = tree.get("lm_head")
+
+
+def _view(cfg: ArchConfig, params):
+    return _TreeView(cfg, params) if isinstance(params, dict) else params
+
+
+def _leaves(tree: dict):
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, dict) else (v,)
+
+
+def count_params(params) -> int:
+    """Parameters of :class:`LMParams` or of the JAX package's tree."""
+    leaves = _leaves(params) if isinstance(params, dict) else params.parameters()
+    return sum(p.numel() for p in leaves)
 
 
 # ---------------------------------------------------------------------------
@@ -310,27 +394,75 @@ def _tokens(params: LMParams, tokens) -> torch.Tensor:
     return torch.as_tensor(tokens, device=params.embed.device).long()
 
 
-def _logits(cfg: ArchConfig, params: LMParams, x: torch.Tensor) -> torch.Tensor:
-    """(B, d) final hidden → (B, vocab) float32 logits: the unembedding is
-    cast to the compute dtype and the product accumulates in float32, as
-    the JAX package's ``preferred_element_type=float32`` does."""
-    w = params.embed.T if cfg.tie_embeddings else params.lm_head
+def _unembed(cfg: ArchConfig, params) -> torch.Tensor:
+    return params.embed.T if cfg.tie_embeddings else params.lm_head
+
+
+def _project(cfg: ArchConfig, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(..., d) final hidden → (..., vocab) float32 logits: the unembedding
+    ``w`` is cast to the compute dtype and the product accumulates in
+    float32, as the JAX package's ``preferred_element_type=float32`` does."""
     logits = torch.matmul(x.float(), w.to(x.dtype).float())
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
 
 
-@torch.no_grad()
-def forward_hidden(cfg: ArchConfig, params: LMParams, batch: dict, *,
-                   force=None) -> torch.Tensor:
-    """Embeddings → stack → final norm. batch: ``{"tokens": (B, S)}``."""
+def _logits(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
+    return _project(cfg, x, _unembed(cfg, params))
+
+
+def forward_hidden(cfg: ArchConfig, params, batch: dict, *, force=None) -> torch.Tensor:
+    """Embeddings → stack → final norm. batch: ``{"tokens": (B, S)}``.
+    Records autograd's graph when grad mode is on and a weight requires
+    grad (the training forward); the kernels' gradients go through
+    ``ops``' plain versions."""
     _check_ported(cfg)
+    params = _view(cfg, params)
     x = _embed(cfg, params, _tokens(params, batch["tokens"]))
     positions = torch.arange(x.shape[1], device=x.device)
     for spec, p in zip(layer_specs(cfg), params.layers):
         x = _apply_layer(cfg, spec, p, x, positions, force)
     return _norm(cfg, params.final_norm, x)
+
+
+def _chunk_loss(cfg: ArchConfig, h: torch.Tensor, y: torch.Tensor, w: torch.Tensor):
+    """Summed masked CE of one (B, chunk) slice and its count of labels."""
+    logits = _project(cfg, h, w)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, y.clamp(min=0)[..., None])[..., 0]
+    mask = (y >= 0).to(torch.float32)
+    return torch.sum((lse - gold) * mask), torch.sum(mask)
+
+
+def lm_loss(cfg: ArchConfig, params, hidden: torch.Tensor, labels) -> torch.Tensor:
+    """Mean next-token CE; labels < 0 are masked. The sequence goes in
+    chunks of ``cfg.loss_chunk`` positions, each under activation
+    checkpointing, so a (B, chunk, V) logits tensor is the largest that
+    exists, in the backward too (it recomputes one chunk's logits at a
+    time). The chunks and their float32 sums are the reference's."""
+    w = _unembed(cfg, _view(cfg, params))
+    labels = torch.as_tensor(labels, device=hidden.device).long()
+    s = hidden.shape[1]
+    chunk = min(cfg.loss_chunk, s)
+    n_chunks = s // chunk
+    bounds = [(i * chunk, (i + 1) * chunk) for i in range(n_chunks)]
+    if s - n_chunks * chunk:
+        bounds.append((n_chunks * chunk, s))
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for lo, hi in bounds:
+        part, n = checkpoint(_chunk_loss, cfg, hidden[:, lo:hi], labels[:, lo:hi], w,
+                             use_reentrant=False)
+        tot, cnt = tot + part, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def train_loss(cfg: ArchConfig, params, batch: dict, *, force=None) -> torch.Tensor:
+    """The training objective: :func:`lm_loss` of :func:`forward_hidden`.
+    batch: ``{"tokens": (B, S), "labels": (B, S)}``."""
+    hidden = forward_hidden(cfg, params, batch, force=force)
+    return lm_loss(cfg, params, hidden, batch["labels"])
 
 
 def _init_layer_state(cfg: ArchConfig, spec: LayerSpec, batch: int, max_len: int,
@@ -363,6 +495,7 @@ def prefill(cfg: ArchConfig, params: LMParams, state: list[dict], batch: dict, *
     S)}``. Returns (last-position logits (B, vocab) float32, state ready for
     decode at pos = S)."""
     _check_ported(cfg)
+    params = _view(cfg, params)
     x = _embed(cfg, params, _tokens(params, batch["tokens"]))
     positions = torch.arange(x.shape[1], device=x.device)
     for spec, p, st in zip(layer_specs(cfg), params.layers, state):
@@ -376,6 +509,7 @@ def decode_step(cfg: ArchConfig, params: LMParams, state: list[dict], tokens,
                 pos: int, *, force=None) -> tuple[torch.Tensor, list[dict]]:
     """One decode step. tokens: (B, 1); pos: index of the new token. Updates
     ``state`` in place; returns (logits (B, vocab) float32, state)."""
+    params = _view(cfg, params)
     x = _embed(cfg, params, _tokens(params, tokens))
     pos = int(pos)
     for spec, p, st in zip(layer_specs(cfg), params.layers, state):

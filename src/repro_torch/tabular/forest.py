@@ -218,15 +218,32 @@ class ForestEstimator(Estimator):
         its own ``max_depth`` as the depth limit (sentinel splits below it,
         so routing matches the unpadded model), as the reference's fused
         program gives. Each config grows only its own trees: the padded
-        trees of the reference's program are dropped there anyway.
-        ``cache`` is accepted for the interface; eager PyTorch compiles
-        nothing to cache."""
-        del cache
+        trees of the reference's program are dropped there anyway. The
+        program comes from ``cache`` (default the process-wide compile
+        cache) under the reference's key."""
+        from repro_torch.core import fusion
+
         ps = [{**self.default_params(), **c} for c in configs]
+        bins = data["bins"]
+        pad_trees = fusion.pad_pow2(max(int(p["n_estimators"]) for p in ps))
         pad_depth = max((int(p["max_depth"]) for p in ps), default=1)
-        return [ForestModel(*self._grow(data, p, None, 0, int(p["n_estimators"]),
-                                        pad_depth), pad_depth)
-                for p in ps]
+        key = ("forest", int(data["n_bins"]), pad_trees, pad_depth,
+               max(1, int(np.sqrt(bins.shape[-1]))), len(fusion.pad_configs(ps)[0]),
+               tuple(bins.shape))
+        if is_sharded_payload(data):
+            key += (int(data["_n_shards"]),)
+        cc = cache if cache is not None else fusion.compile_cache()
+        fit = cc.get(key, lambda: self._batched_fit(pad_depth))
+        return fit(data, ps)
+
+    def _batched_fit(self, pad_depth: int):
+        """The compile cache's program for one forest signature: every
+        config grown at the batch's depth."""
+        def fit(data, ps):
+            return [ForestModel(*self._grow(data, p, None, 0, int(p["n_estimators"]),
+                                            pad_depth), pad_depth)
+                    for p in ps]
+        return fit
 
     @staticmethod
     def estimate_cost(params: Mapping[str, Any], n_rows: int, n_features: int) -> float:

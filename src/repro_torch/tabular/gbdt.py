@@ -170,24 +170,47 @@ def predict_raw_margin(x, feat, thresh, leaves, base, *, max_depth: int):
     return margin
 
 
+def _tree_predict(depth: int):
+    """The predict cache's program for one (depth, trees, B, x.shape)
+    signature: each model's trees routed on ``x``'s device in tree order."""
+    def predict(x, models) -> np.ndarray:
+        out = np.empty((len(models), x.shape[0]), np.float32)
+        for i, m in enumerate(models):
+            feat = torch.tensor(np.asarray(m.feat, np.int64), device=x.device)
+            thresh = torch.tensor(np.asarray(m.thresh, np.float32), device=x.device)
+            leaves = torch.tensor(np.asarray(m.leaves, np.float32), device=x.device)
+            base = torch.tensor(getattr(m, "base", 0.0), dtype=torch.float32,
+                                device=x.device)
+            out[i] = predict_raw_margin(x, feat, thresh, leaves, base,
+                                        max_depth=depth).cpu().numpy()
+        return out
+    return predict
+
+
 def batched_tree_margins(models, x, *, cache=None) -> np.ndarray:
     """(B, rows) margins for a stack of heap-layout tree models (GBDT with
     its base margin), each routed on the device holding ``x`` (numpy input
-    goes to :func:`~repro_torch.device.default_device`). ``cache`` is
-    accepted for the interface; eager PyTorch compiles nothing to cache."""
-    del cache
+    goes to :func:`~repro_torch.device.default_device`). Models are grouped
+    by depth, each group one program of the predict cache (``cache``,
+    default :func:`~repro_torch.core.evaluation.predict_compile_cache`)
+    under the reference's key ``("tree_predict", depth, pad_pow2(trees), B,
+    x.shape)``."""
+    from repro_torch.core.evaluation import predict_compile_cache
+    from repro_torch.core.fusion import pad_pow2
+
+    cache = cache if cache is not None else predict_compile_cache()
     if not isinstance(x, torch.Tensor):
         x = torch.tensor(np.asarray(x, np.float32), device=default_device())
     x = x.to(torch.float32)
     out = np.empty((len(models), x.shape[0]), np.float32)
+    groups: dict[int, list[int]] = {}
     for i, m in enumerate(models):
-        feat = torch.tensor(np.asarray(m.feat, np.int64), device=x.device)
-        thresh = torch.tensor(np.asarray(m.thresh, np.float32), device=x.device)
-        leaves = torch.tensor(np.asarray(m.leaves, np.float32), device=x.device)
-        base = torch.tensor(getattr(m, "base", 0.0), dtype=torch.float32,
-                            device=x.device)
-        out[i] = predict_raw_margin(x, feat, thresh, leaves, base,
-                                    max_depth=int(m.max_depth)).cpu().numpy()
+        groups.setdefault(int(m.max_depth), []).append(i)
+    for depth, idxs in groups.items():
+        pad_t = pad_pow2(max(np.asarray(models[i].feat).shape[0] for i in idxs))
+        fn = cache.get(("tree_predict", depth, pad_t, len(idxs), tuple(x.shape)),
+                       lambda depth=depth: _tree_predict(depth))
+        out[idxs] = fn(x, [models[i] for i in idxs])
     return out
 
 
@@ -470,25 +493,41 @@ class GBDTEstimator(Estimator):
         own ``depth_limit``/``bin_limit`` mask the rest, so every model has
         the batch's depth, as the reference's fused program gives. Each
         config runs its own round count: padded rounds come after the kept
-        ones and cannot change them. ``cache`` is accepted for the
-        interface; eager PyTorch compiles nothing to cache."""
-        del cache
+        ones and cannot change them. The program comes from ``cache``
+        (default the process-wide compile cache) under the reference's key,
+        rounds and batch axis padded to powers of two."""
+        from repro_torch.core import fusion
+
         ps = [{**self.default_params(), **c} for c in configs]
         n_bins = int(data["n_bins"])
         coarse = [self._coarsen(n_bins, int(p["max_bin"])) for p in ps]
         pad_bins = max((nc for _, nc in coarse), default=2)
+        pad_rounds = fusion.pad_pow2(max(int(p["round"]) for p in ps))
         pad_depth = max((int(p["max_depth"]) for p in ps), default=1)
-        base = self._base_margin(data)
-        models = []
-        for p, (factor, n_cbins) in zip(ps, coarse):
-            rounds = int(p["round"])
-            trees = run_core(
-                _fit_gbdt_core, data, _f32(base), factor, n_cbins, rounds,
-                int(p["max_depth"]), *self._hyper(p), n_bins=pad_bins,
-                rounds=rounds, max_depth=pad_depth)
-            models.append(self._model(trees, data["edges"], factor, n_cbins, base,
-                                      pad_depth))
-        return models
+        key = ("gbdt", pad_bins, pad_rounds, pad_depth, len(fusion.pad_configs(ps)[0]),
+               tuple(data["bins"].shape))
+        if is_sharded_payload(data):
+            key += (int(data["_n_shards"]),)
+        cc = cache if cache is not None else fusion.compile_cache()
+        fit = cc.get(key, lambda: self._batched_fit(pad_bins, pad_depth))
+        return fit(data, ps, coarse)
+
+    def _batched_fit(self, pad_bins: int, pad_depth: int):
+        """The compile cache's program for one GBDT signature: every config
+        boosted through the core at the batch's padded bins and depth."""
+        def fit(data, ps, coarse):
+            base = self._base_margin(data)
+            models = []
+            for p, (factor, n_cbins) in zip(ps, coarse):
+                rounds = int(p["round"])
+                trees = run_core(
+                    _fit_gbdt_core, data, _f32(base), factor, n_cbins, rounds,
+                    int(p["max_depth"]), *self._hyper(p), n_bins=pad_bins,
+                    rounds=rounds, max_depth=pad_depth)
+                models.append(self._model(trees, data["edges"], factor, n_cbins, base,
+                                          pad_depth))
+            return models
+        return fit
 
     @staticmethod
     def estimate_cost(params: Mapping[str, Any], n_rows: int, n_features: int) -> float:

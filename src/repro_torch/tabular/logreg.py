@@ -21,7 +21,7 @@ import torch
 
 from repro_torch import compat
 from repro_torch.core.data_format import is_sharded_payload
-from repro_torch.core.evaluation import stable_sigmoid
+from repro_torch.core.evaluation import predict_compile_cache, stable_sigmoid
 from repro_torch.core.interface import (
     Estimator,
     ResumeState,
@@ -172,13 +172,20 @@ def _f32s(values, device) -> torch.Tensor:
     return torch.tensor(np.asarray(values, np.float32), device=device)
 
 
-def _batched_margins(models, x) -> np.ndarray:
-    """(B, rows) margins: a stacked weight batch scores as ONE matmul."""
+def _score(x, w, b):
+    return (x @ w.T + b[None, :]).T
+
+
+def _batched_margins(models, x, *, cache=None) -> np.ndarray:
+    """(B, rows) margins: a stacked weight batch scores as ONE matmul, the
+    program of the predict cache's ``("logreg.predict", B, x.shape)``."""
     if not isinstance(x, torch.Tensor):
         x = torch.tensor(np.asarray(x, np.float32), device=default_device())
+    cache = cache if cache is not None else predict_compile_cache()
+    fn = cache.get(("logreg.predict", len(models), tuple(x.shape)), lambda: _score)
     w = torch.tensor(np.stack([m.w for m in models]).astype(np.float32), device=x.device)
     b = _f32s([m.b for m in models], x.device)
-    return (x.float() @ w.T + b[None, :]).T.cpu().numpy()
+    return fn(x.float(), w, b).cpu().numpy()
 
 
 class LogRegModel(TrainedModel):
@@ -191,18 +198,18 @@ class LogRegModel(TrainedModel):
 
     # ---- device validation plane (DESIGN.md §3.4) -----------------------
     def predict_margin_device(self, x, *, cache=None) -> np.ndarray:
-        return _batched_margins([self], x)[0]
+        return _batched_margins([self], x, cache=cache)[0]
 
     def predict_proba_device(self, x, *, cache=None) -> np.ndarray:
         return stable_sigmoid(self.predict_margin_device(x, cache=cache))
 
     @classmethod
     def predict_margin_batched(cls, models, x, *, cache=None) -> np.ndarray:
-        return _batched_margins(models, x)
+        return _batched_margins(models, x, cache=cache)
 
     @classmethod
     def predict_proba_batched(cls, models, x, *, cache=None) -> np.ndarray:
-        return stable_sigmoid(_batched_margins(models, x))
+        return stable_sigmoid(_batched_margins(models, x, cache=cache))
 
 
 @register_estimator
@@ -230,7 +237,7 @@ class LogRegEstimator(Estimator):
         )(x, data["y"], data["_shard_valid"])
 
     def train(self, data, params: Mapping[str, Any]) -> LogRegModel:
-        return self.train_batched(data, [params])[0]
+        return self._train_stacks(data, [{**self.default_params(), **params}])[0]
 
     # ---- adaptive search (DESIGN.md §3.6) -------------------------------
     def train_resumable(self, data, params: Mapping[str, Any], *,
@@ -266,11 +273,24 @@ class LogRegEstimator(Estimator):
 
     def train_batched(self, data, configs, *, cache=None) -> list[LogRegModel]:
         """The configs trained stacked (see :func:`_adam_logreg`), in stacks
-        of ``STACK_WIDTH``; each gets its own step count. ``cache`` is
-        accepted for the interface; eager PyTorch compiles nothing to
-        cache."""
-        del cache
+        of ``STACK_WIDTH``; each gets its own step count. The program comes
+        from ``cache`` (default the process-wide compile cache) under the
+        reference's key, steps and batch axis padded to powers of two."""
+        from repro_torch.core import fusion
+
         ps = [{**self.default_params(), **c} for c in configs]
+        x = data["x"]
+        pad_steps = fusion.pad_pow2(max(int(p["steps"]) for p in ps))
+        key = ("logreg", pad_steps, len(fusion.pad_configs(ps)[0]), tuple(x.shape))
+        if is_sharded_payload(data):
+            key += (int(data["_n_shards"]),)
+        cc = cache if cache is not None else fusion.compile_cache()
+        fit = cc.get(key, lambda: self._train_stacks)
+        return fit(data, ps)
+
+    def _train_stacks(self, data, ps) -> list[LogRegModel]:
+        """The compile cache's program for one signature: the configs in
+        stacks of ``STACK_WIDTH``."""
         x = data["x"]
         models = []
         for i in range(0, len(ps), STACK_WIDTH):

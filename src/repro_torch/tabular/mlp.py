@@ -16,6 +16,7 @@ shards updates one replicated carry.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Mapping, Sequence
 
 import numpy as np
@@ -23,7 +24,7 @@ import torch
 
 from repro_torch import compat
 from repro_torch.core.data_format import is_sharded_payload
-from repro_torch.core.evaluation import stable_sigmoid
+from repro_torch.core.evaluation import predict_compile_cache, stable_sigmoid
 from repro_torch.core.interface import (
     Estimator,
     ResumeState,
@@ -141,24 +142,31 @@ def _zeros_like(params):
     return [(torch.zeros_like(w), torch.zeros_like(b)) for w, b in params]
 
 
-def _batched_logits(models, x) -> np.ndarray:
+def _stacked_forward(x, stacked):
+    return _forward(stacked, x[None].expand(stacked[0][0].shape[0], *x.shape))
+
+
+def _batched_logits(models, x, *, cache=None) -> np.ndarray:
     """(B, rows) logits for models grouped by architecture, each group one
-    stacked forward pass."""
+    stacked forward pass: the program of the predict cache's
+    ``("mlp.predict", dims, n, x.shape)``."""
     if not isinstance(x, torch.Tensor):
         x = torch.tensor(np.asarray(x, np.float32), device=default_device())
     x = x.float()
+    cache = cache if cache is not None else predict_compile_cache()
     out = np.empty((len(models), x.shape[0]), np.float32)
     groups: dict[tuple, list[int]] = {}
     for i, m in enumerate(models):
         groups.setdefault(tuple(w.shape for w, _ in m.params), []).append(i)
     for dims, idxs in groups.items():
+        fn = cache.get(("mlp.predict", dims, len(idxs), tuple(x.shape)),
+                       lambda: _stacked_forward)
         stacked = [
             tuple(torch.tensor(np.stack([models[i].params[li][k] for i in idxs]),
                                device=x.device) for k in (0, 1))
             for li in range(len(dims))
         ]
-        xs = x[None].expand(len(idxs), *x.shape)
-        out[idxs] = _forward(stacked, xs).cpu().numpy()
+        out[idxs] = fn(x, stacked).cpu().numpy()
     return out
 
 
@@ -176,18 +184,18 @@ class MLPModel(TrainedModel):
 
     # ---- device validation plane (DESIGN.md §3.4) -----------------------
     def predict_margin_device(self, x, *, cache=None) -> np.ndarray:
-        return _batched_logits([self], x)[0]
+        return _batched_logits([self], x, cache=cache)[0]
 
     def predict_proba_device(self, x, *, cache=None) -> np.ndarray:
         return stable_sigmoid(self.predict_margin_device(x, cache=cache))
 
     @classmethod
     def predict_margin_batched(cls, models, x, *, cache=None) -> np.ndarray:
-        return _batched_logits(models, x)
+        return _batched_logits(models, x, cache=cache)
 
     @classmethod
     def predict_proba_batched(cls, models, x, *, cache=None) -> np.ndarray:
-        return stable_sigmoid(_batched_logits(models, x))
+        return stable_sigmoid(_batched_logits(models, x, cache=cache))
 
 
 def _unstack(params, k: int):
@@ -291,9 +299,11 @@ class MLPEstimator(Estimator):
     def train_batched(self, data, configs, *, cache=None) -> list[MLPModel]:
         """The configs trained stacked (see :func:`_adam_mlp`), in stacks of
         ``STACK_WIDTH``, each from its own generator and with its own step
-        count. ``cache`` is accepted
-        for the interface; eager PyTorch compiles nothing to cache."""
-        del cache
+        count. The program comes from ``cache`` (default the process-wide
+        compile cache) under the reference's key, steps and batch axis
+        padded to powers of two."""
+        from repro_torch.core import fusion
+
         ps = [{**self.default_params(), **c} for c in configs]
         x = data["x"]
         n_feat, n = int(x.shape[-1]), self._n_rows(data)
@@ -302,10 +312,21 @@ class MLPEstimator(Estimator):
         if any(self._dims(p, n_feat) != dims
                or int(min(p["batch_size"], n)) != bs for p in ps):
             raise ValueError("mlp fused batch mixes architectures/batch sizes")
+        pad_steps = fusion.pad_pow2(max(int(p["steps"]) for p in ps))
+        key = ("mlp", dims, pad_steps, bs, len(fusion.pad_configs(ps)[0]), tuple(x.shape))
+        if is_sharded_payload(data):
+            key += (int(data["_n_shards"]),)
+        cc = cache if cache is not None else fusion.compile_cache()
+        fit = cc.get(key, lambda: functools.partial(self._train_stacks, dims))
+        return fit(data, ps)
+
+    def _train_stacks(self, dims, data, ps) -> list[MLPModel]:
+        """The compile cache's program for one signature: the configs in
+        stacks of ``STACK_WIDTH``, each from its own generator."""
         models = []
         for i in range(0, len(ps), STACK_WIDTH):
             chunk = ps[i:i + STACK_WIDTH]
-            draws = [MLPDraws(int(p["seed"]), x.device) for p in chunk]
+            draws = [MLPDraws(int(p["seed"]), data["x"].device) for p in chunk]
             params, _, _ = self._fit(data, chunk, draws,
                                      self._carry([d.init(dims) for d in draws]),
                                      0, max(int(p["steps"]) for p in chunk))

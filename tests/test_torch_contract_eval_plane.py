@@ -4,11 +4,6 @@ The same tests with ``repro`` read as ``repro_torch`` and the device
 predictors' ``predict_*_jax`` as ``predict_*_device``, on the CPU
 (``set_default_device("cpu")``).
 
-Left out, because they count compile-cache builds, which eager PyTorch
-never makes (ROADMAP Queue 3):
-``test_predict_compile_cache_reuses_programs``,
-``test_predict_compile_stats_surface``.
-
 The reference file's own description:
 
     Fused validation plane (DESIGN.md §3.4): jitted predictor parity,
@@ -35,7 +30,7 @@ from repro_torch.core import (
     schedule,
     stable_sigmoid,
 )
-from repro_torch.core.evaluation import EvalPlan, evaluate_models
+from repro_torch.core.evaluation import EvalPlan, evaluate_models, predict_compile_cache
 from repro_torch.core.fault import WALRecord
 from repro_torch.core.fusion import FusedBatch
 from repro_torch.core.results import auc
@@ -172,6 +167,18 @@ class TestJittedParity:
             np.testing.assert_allclose(m.predict_proba(valid.x), batched[i],
                                        atol=1e-6)
 
+    def test_predict_compile_cache_reuses_programs(self, small_data):
+        train, valid = small_data
+        est = get_estimator("gbdt")
+        m, _ = est.run(train, {"round": 6, "max_depth": 3, "max_bin": 32})
+        cache = predict_compile_cache()
+        m.predict_proba_device(valid.x)
+        hits0, misses0 = cache.counters()
+        m.predict_proba_device(valid.x)       # same (depth, pad, B, shape)
+        hits1, misses1 = cache.counters()
+        assert hits1 == hits0 + 1 and misses1 == misses0
+
+
 # ---------------------------------------------------------------------------
 # executor-side scoring (tentpole: both pools)
 # ---------------------------------------------------------------------------
@@ -301,6 +308,17 @@ class TestScoredStreaming:
         results = list(session.results(train, valid))
         assert session.stop_reason == "target_metric"
         assert len(results) < 4
+
+    def test_predict_compile_stats_surface(self, small_data):
+        train, valid = small_data
+        spec = SearchSpec(
+            spaces=[GridBuilder("logreg").add_grid("c", [0.1, 1.0]).build()],
+            n_executors=1)
+        session = Session(spec)
+        list(session.results(train, valid))
+        st = session.stats
+        assert st.predict_compile_cache_hits + st.predict_compile_cache_misses > 0
+        assert 0.0 <= st.predict_compile_cache_hit_rate <= 1.0
 
     def test_foreign_backend_falls_back_to_driver_scoring(self, small_data):
         """A backend whose submit lacks the validate kwarg still works —

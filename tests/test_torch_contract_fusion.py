@@ -4,12 +4,6 @@ The same tests with ``repro`` read as ``repro_torch`` and the device
 predictors' ``predict_*_jax`` as ``predict_*_device``, on the CPU
 (``set_default_device("cpu")``).
 
-Left out, because they count compile-cache builds, which eager PyTorch
-never makes (ROADMAP Queue 3):
-``test_batch_axis_pads_to_shared_signature``,
-``test_batched_training_hits_compile_cache``,
-``test_session_fused_stats_and_stream``.
-
 The reference file's own description:
 
     Task-fusion correctness (core/fusion.py + tabular train_batched paths).
@@ -30,9 +24,11 @@ from repro_torch.core import (
     DenseMatrix,
     FusedBatch,
     SearchSpec,
+    SearchWAL,
     Session,
     TrainTask,
     auc,
+    compile_cache,
     convert,
     fuse_tasks,
     get_estimator,
@@ -205,6 +201,38 @@ def test_compile_cache_counts_and_reuses():
     assert cache.counters() == (0, 0) and cache.n_entries == 0
 
 
+def test_batched_training_hits_compile_cache(small_data):
+    est = get_estimator("logreg")
+    data = convert(small_data, "dense_rows")
+    cache = CompileCache()
+    # steps 150/200 share a pow-2 pad bucket (256): one compile, then hits
+    est.train_batched(data, [{"steps": 150}, {"steps": 200}], cache=cache)
+    est.train_batched(data, [{"steps": 160}, {"steps": 180}], cache=cache)
+    est.train_batched(data, [{"steps": 140}, {"steps": 130}], cache=cache)
+    assert cache.misses == 1 and cache.hits == 2
+
+
+def test_batch_axis_pads_to_shared_signature(small_data):
+    """A WAL-restricted / split odd-sized batch pads its batch axis pow-2
+    (replicated last config, outputs discarded) and reuses the full-width
+    compiled program instead of compiling a fresh odd size."""
+    est = get_estimator("logreg")
+    data = convert(small_data, "dense_rows")
+    cache = CompileCache()
+    four = est.train_batched(
+        data, [{"steps": 200, "c": 0.1 * (i + 1)} for i in range(4)],
+        cache=cache)
+    three = est.train_batched(
+        data, [{"steps": 200, "c": 0.1 * (i + 1)} for i in range(3)],
+        cache=cache)
+    assert len(four) == 4 and len(three) == 3
+    assert cache.misses == 1 and cache.hits == 1
+    # the shared real configs produce identical models either way
+    x = small_data.x
+    for a, b in zip(four[:3], three):
+        assert float(np.abs(a.predict_proba(x) - b.predict_proba(x)).max()) == 0.0
+
+
 def test_fuse_buckets_sort_numerically():
     """Chunks group numerically-adjacent buckets — a repr() sort would put
     (128,) before (16,) and fuse distant shapes into one padded program."""
@@ -324,6 +352,33 @@ def _fused_spec(**kw):
     return SearchSpec.from_dict({
         "spaces": spaces, "n_executors": 2, "policy": "lpt",
         "profiler": {"kind": "analytic"}, "fuse": True, "max_fuse": 4, **kw})
+
+
+def test_session_fused_stats_and_stream(small_data, tmp_path):
+    train, valid = small_data.split((0.8, 0.2), seed=0)
+    compile_cache().clear()
+    session = Session(_fused_spec(wal_path=str(tmp_path / "wal.jsonl")))
+    results = list(session.results(train, valid))
+    assert len(results) == 6
+    assert all(r.ok for r in results)
+    # the bulk rode in fused batches (split_for_balance may strand a task
+    # or two as singletons when it cuts a bottleneck batch)
+    assert sum(r.batch_size > 1 for r in results) >= 4
+    assert session.stats.n_fused_tasks == 6
+    assert session.stats.n_fused_batches == 2
+    assert session.stats.compile_cache_misses >= 1
+    # per-task amortized seconds land in the WAL for every member
+    wal = SearchWAL(str(tmp_path / "wal.jsonl"))
+    assert all(wal.is_done(r.task.task_id) for r in results)
+    # resume: nothing left to run
+    resumed = Session.resume(str(tmp_path / "wal.jsonl"), _fused_spec())
+    assert list(resumed.results(train, valid)) == []
+    # a second search of the same shapes is all cache hits — SearchStats
+    # reports this session's share of the process-wide CompileCache traffic
+    rerun = Session(_fused_spec())
+    list(rerun.results(train, valid))
+    assert rerun.stats.compile_cache_misses == 0
+    assert rerun.stats.compile_cache_hits >= 1
 
 
 def test_session_fused_results_match_unfused(small_data):

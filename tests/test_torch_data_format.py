@@ -40,6 +40,32 @@ def test_quantized_bins_bit_equal(higgs_small, max_bins):
     assert tdf.payload_nbytes(got) == jdf.payload_nbytes(want)
 
 
+def _awkward_columns():
+    """Ties, both signed zeros, a constant column, NaN and infinities."""
+    rng = np.random.default_rng(7)
+    x = rng.integers(0, 5, size=(3000, 7)).astype(np.float32)
+    x[:, 3] = 0.0
+    x[::7, 4] = -0.0
+    x[::3, 1] *= -1.0
+    x[:, 5] = rng.standard_normal(3000)
+    x[5, 5], x[9, 6], x[10, 6] = np.nan, np.inf, -np.inf
+    return x
+
+
+@pytest.mark.parametrize("max_bins", [2, 16, 256])
+def test_quantized_bins_bit_equal_on_awkward_columns(max_bins):
+    """Edges and bins bit for bit as the JAX package's converter gives them
+    (np.quantile's own selection, a searchsorted per feature) where sorted
+    columns could differ: signed zeros, NaN, infinities, ties."""
+    x = _awkward_columns()
+    dm = jdf.DenseMatrix(x, np.zeros(len(x), np.float32))
+    want = jdf.convert(dm, "quantized_bins", max_bins=max_bins)
+    got = tdf.convert(_port(dm), "quantized_bins", max_bins=max_bins)
+    np.testing.assert_array_equal(got["bins"].numpy(), np.asarray(want["bins"]))
+    np.testing.assert_array_equal(got["edges"].numpy().view(np.int32),
+                                  np.asarray(want["edges"]).view(np.int32))
+
+
 @pytest.mark.parametrize("fmt", ["dense_rows", "dense_cols", "eval_dense", "sparse_csr"])
 def test_other_converters_equal(higgs_small, fmt):
     _, valid = higgs_small

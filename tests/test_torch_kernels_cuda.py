@@ -873,3 +873,123 @@ def test_cuda_mlp_rung_resumes_on_the_cpu(cuda):
     straight = est.train(on_cpu, params)
     np.testing.assert_allclose(resumed.predict_proba(raw.x), straight.predict_proba(raw.x),
                                rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The dense configs' attention shapes, and gradients through the kernels
+# ---------------------------------------------------------------------------
+
+# (Hq, Hkv, D, window) of TinyLlama-1.1B, Qwen2-1.5B, Gemma-2B and
+# Gemma3-12B's local layers, at a prompt longer than Gemma3's window
+DENSE_HEADS = {"tinyllama": (32, 4, 64, None), "qwen2": (12, 2, 128, None),
+               "gemma_2b": (8, 1, 256, None), "gemma3_local": (16, 8, 256, 1024),
+               "gemma3_global": (16, 8, 256, None)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(DENSE_HEADS))
+def test_cuda_flash_attention_dense_config_heads(cuda, name):
+    hq, hkv, d, window = DENSE_HEADS[name]
+    q, k, v = _lm(20, (2, hq, 1300, d), (2, hkv, 1300, d), (2, hkv, 1300, d), device=cuda,
+                  dtype=torch.bfloat16)
+    got = ops.attention(q, k, v, window=window)
+    _bf16_row_close(got, ref.attention_ref(q, k, v, window=window))
+    assert torch.equal(got, ops.attention(q, k, v, force="kernel", window=window))
+
+
+def _grad_pair(cuda, fn, plain, inputs, seed):
+    """``fn`` (ops on the card, the kernel path) and ``plain`` on the same
+    leaves: their outputs and the gradients of one weighted sum of them."""
+    outs = fn(*inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    assert all(o.grad_fn is not None for o in outs)
+    want = plain(*inputs)
+    want = want if isinstance(want, tuple) else (want,)
+    (wts,) = [_lm(seed, *[o.shape for o in outs], device=cuda)]
+    live = [x for x in inputs if x is not None]
+    g = torch.autograd.grad(sum((o.float() * w).sum() for o, w in zip(outs, wts)), live)
+    g_r = torch.autograd.grad(sum((o.float() * w).sum() for o, w in zip(want, wts)), live)
+    return outs, want, g, g_r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_attention_gradients_through_the_kernel(cuda, dtype):
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    dt = getattr(torch, dtype)
+    q, k, v = (t.requires_grad_() for t in _lm(21, (2, 8, 300, 64), (2, 2, 300, 64),
+                                               (2, 2, 300, 64), device=cuda, dtype=dt))
+    reset_launch_counts()
+    outs, want, g, g_r = _grad_pair(
+        cuda, lambda *a: ops.attention(*a, window=100),
+        lambda *a: ref.attention_ref(*a, window=100), (q, k, v), 22)
+    assert launch_counts()["flash_attention"] == 1
+    if dt == torch.float32:
+        torch.testing.assert_close(outs[0], want[0], atol=1e-5, rtol=1e-4)
+        for a, b in zip(g, g_r):
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
+    else:
+        _bf16_row_close(outs[0], want[0].detach())
+        for a, b in zip(g, g_r):
+            _bf16_close(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rglru_gradients_through_the_kernel(cuda, dtype):
+    dt = getattr(torch, dtype)
+    x, ig, rg = (t.requires_grad_() for t in _lm(23, *[(2, 150, 96)] * 3, device=cuda,
+                                                 dtype=dt))
+    a, h0 = (t.requires_grad_() for t in _lm(24, (96,), (2, 96), device=cuda))
+    outs, want, g, g_r = _grad_pair(cuda, ops.rglru, ref.rglru_ref, (x, ig, rg, a, h0), 25)
+    torch.testing.assert_close(outs[1], want[1], atol=1e-4, rtol=1e-4)
+    close = ((lambda p, q: torch.testing.assert_close(p, q, atol=1e-4, rtol=1e-4))
+             if dt == torch.float32 else _bf16_close)
+    close(outs[0], want[0].detach())
+    for p, q in zip(g, g_r):
+        close(p, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rwkv6_gradients_through_the_kernel(cuda, dtype):
+    dt = getattr(torch, dtype)
+    r, k, v = (t.requires_grad_() for t in _lm(26, *[(1, 2, 80, 64)] * 3, device=cuda,
+                                               dtype=dt))
+    w, u, s0 = (t.requires_grad_() for t in _lm(27, (1, 2, 80, 64), (2, 64), (1, 2, 64, 64),
+                                                device=cuda))
+    outs, want, g, g_r = _grad_pair(cuda, ops.rwkv6, ref.rwkv6_ref, (r, k, v, w, u, s0), 28)
+    torch.testing.assert_close(outs[1], want[1], atol=1e-4, rtol=1e-4)
+    close = ((lambda p, q: torch.testing.assert_close(p, q, atol=1e-4, rtol=1e-4))
+             if dt == torch.float32 else _bf16_close)
+    close(outs[0], want[0].detach())
+    for p, q in zip(g, g_r):
+        close(p, q)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_through_the_kernels(cuda):
+    """One train step of each ported architecture's smoke config on the card:
+    the loss and gradient norm within bf16 noise (1e-2 relative) of the same
+    step with ``force="ref"``, the kernels launched once a layer."""
+    from repro_torch import configs
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.train import build_train_step, init_train_state, make_optimizer
+
+    for arch in ("tinyllama_1_1b", "gemma3_12b", "recurrentgemma_9b", "rwkv6_7b"):
+        cfg = configs.get_smoke_config(arch)
+        opt = make_optimizer("adamw", lr=1e-3)
+        state = init_train_state(cfg, opt, seed=0, device=cuda)
+        b = {k: torch.from_numpy(v).to(cuda)
+             for k, v in TokenStream(2, 64, cfg.vocab, seed=0).batch_at(0).items()}
+        reset_launch_counts()
+        _, m = build_train_step(cfg, opt)(state, b)
+        launched = launch_counts()
+        _, m_ref = build_train_step(cfg, opt, force="ref")(state, b)
+        assert launch_counts() == launched, arch
+        assert sum(launched.values()) == cfg.n_layers, arch
+        for key in ("loss", "grad_norm"):
+            assert abs(float(m[key]) - float(m_ref[key])) <= 1e-2 * abs(float(m_ref[key])), \
+                (arch, key)
