@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases 1,9,10 # the paper's grid only
     python3 chip_smoke.py --phases 1,11,12 # the sharded search and the service only
     python3 chip_smoke.py --phases 1,6,13,14 # the dense LMs served and TinyLlama trained
+    python3 chip_smoke.py --phases 1,15   # whisper, InternVL and the MoEs served
 
 It imports only the port (``src/repro_torch``), never JAX or the JAX
 package, and exits non-zero without printing a result when CUDA is absent
@@ -34,7 +35,8 @@ or any phase fails. Phases:
    for the recurrences also their device time from a CUDA graph replay,
    which at T=1 separates the card from the host's launch cost;
 7. RecurrentGemma-9B served at full width and half depth (19 of its 38
-   layers; see SERVE_DEPTH) on seeded random weights: one wave of 4 requests (prompts of 4096, 3000, 2048 and
+   layers; see SERVE_DEPTH) on seeded random weights (drawn on the card,
+   ``_card_init``): one wave of 4 requests (prompts of 4096, 3000, 2048 and
    1000 tokens, 32 new tokens each) through ``ServeEngine``, with the
    launches of each kernel per prefill and per decode step, the kernel
    path against the plain path (the float32 prefill layer by layer against
@@ -62,8 +64,9 @@ or any phase fails. Phases:
    once on one shared cache, then the sharded tenant again under injected
    train failures with retries; exact per-tenant ledgers and the same best
    configuration;
-13. the four dense LMs served at full width and depth on seeded weights, as
-   in phase 7: TinyLlama-1.1B (prompts of 2048, 1500, 1024 and 500 tokens:
+13. the four dense LMs served at full width and half depth (11, 14, 9 and 24
+   of 22, 28, 18 and 48 layers; SERVE_DEPTH) on seeded weights, as in
+   phase 7: TinyLlama-1.1B (prompts of 2048, 1500, 1024 and 500 tokens:
    its context), Qwen2-1.5B, Gemma-2B and Gemma3-12B (phase 7's wave), the
    flash kernel at head dims 64, 128 and 256 and Gemma3's window of 1024;
    Gemma3-12B also gets the float32 layer check;
@@ -73,7 +76,19 @@ or any phase fails. Phases:
    plain path, one layer's attention gradient through the kernel against
    the plain version's own autograd, 6 steps with a checkpoint every 3,
    and a fresh ``Trainer`` resumed from step 3 giving the uninterrupted
-   run's losses.
+   run's losses;
+15. the rest of the zoo served as in phase 7: whisper-medium at full width
+   and depth (24 encoder and 24 decoder layers; prompts of 384, 300, 200
+   and 100 tokens, within its 448 learned positions; the checks feed
+   seeded (4, 1500, 1024) frames: 72 flash launches a prefill, the
+   encoder's output against the plain path, the float32 decoder layers
+   against float64), InternVL2-1B (prompts of 2048, 1500, 1024 and 500
+   tokens; seeded (4, 256, 896) patches), Qwen3-MoE-235B at full width and
+   2 of its 94 layers (phase 7's wave; each MoE layer's output against a
+   per-token reference, the share of slots dropped), Arctic-480B's smoke
+   config served, and one full-width Arctic layer (13.61B bfloat16
+   parameters drawn on the card) on 4 x 1024 tokens, its MoE output
+   against the per-token reference.
 
 Phase 2 also holds the sharded level (the shards' partial histograms in
 one histogram launch, summed in shard order, scanned by ``split_scan``)
@@ -1306,7 +1321,13 @@ LM_NEW_TOKENS = 32
 # on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md). Every kernel of the path
 # still runs at its serving shape, and the float32 layer check holds every
 # layer that runs
-SERVE_DEPTH = {"recurrentgemma-9b": 19, "rwkv6-7b": 16}
+SERVE_DEPTH = {"recurrentgemma-9b": 19, "rwkv6-7b": 16,
+               # phase 13's dense configs at half depth, cut when phase 15
+               # joined: the whole script took 1,404 s on an NVIDIA H100 80GB
+               # HBM3 at 700 W whose host ran the grids 40 % slower than
+               # before (PERF.md). Gemma3-12B's 24 keep 4 of its 5:1
+               # local:global groups, both kinds under the float32 check
+               "tinyllama-1.1b": 11, "qwen2-1.5b": 14, "gemma-2b": 9, "gemma3-12b": 24}
 # float32 operations per element of the fused RG-LRU gate math and update:
 # two sigmoids (3 each), softplus folded into a per-channel constant, the
 # product with it, exp, expm1 with its doubling, sqrt and negation, two
@@ -1343,7 +1364,7 @@ def _state_held(torch, what, got, want) -> float:
 
 
 def _attention_case(torch, gen, label, b, hq, hkv, tq, tk, d, dtype, *, window=None,
-                    cap=None):
+                    cap=None, causal=True):
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -1351,7 +1372,7 @@ def _attention_case(torch, gen, label, b, hq, hkv, tq, tk, d, dtype, *, window=N
 
     q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
                for shape in ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d)))
-    kw = dict(causal=True, window=window, logit_softcap=cap)
+    kw = dict(causal=causal, window=window, logit_softcap=cap)
     got = flash_attention_cuda(q, k, v, **kw)
     want = ref.attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -1371,13 +1392,14 @@ def _attention_case(torch, gen, label, b, hq, hkv, tq, tk, d, dtype, *, window=N
     plain_ms = _time_ms(torch, lambda: ref.attention_ref(q, k, v, **kw), reps=3)
     q_pos = torch.arange(tq, device="cuda")[:, None] + (tk - tq)
     k_pos = torch.arange(tk, device="cuda")[None, :]
-    mask = k_pos <= q_pos
+    mask = k_pos <= q_pos if causal else torch.ones((tq, tk), dtype=torch.bool, device="cuda")
     if window is not None:
         mask &= q_pos - k_pos < window
     library_ms = None
     if cap is None:       # no PyTorch call applies a tanh softcap
+        full = not causal and window is None
         library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, enable_gqa=hq != hkv))
+            q, k, v, attn_mask=None if full else mask, enable_gqa=hq != hkv))
     n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     n_flops = 4.0 * b * hq * int(mask.sum()) * d        # QK^T and PV on visible pairs
     peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 else PEAK_F32_FLOP_PER_S
@@ -1557,22 +1579,29 @@ def _layerwise_f32(torch, cfg32, params, batch, max_len):
     from repro_torch.models import transformer as tm
     from repro_torch.train.optimizer import tree_map
 
-    x_ref = tm._embed(cfg32, params, tm._tokens(params, batch["tokens"]))
+    x_ref = tm._embed_inputs(cfg32, params, batch)
     x_free = x_ref
     positions = torch.arange(x_ref.shape[1], device="cuda")
     cfg64 = dataclasses.replace(cfg32, compute_dtype="float64")
+    # cross-attention's memory: the plain float32 encoder's output, an input
+    # of every layer like x_ref (widened for the float64 pass); the freely
+    # running kernel path takes the kernel path's own
+    memory = tm._memory(cfg32, params, batch, "ref")
+    memory_free = tm._memory(cfg32, params, batch, None)
+    memory64 = None if memory is None else memory.double()
     errs, drift, profile = [], [], None
     with torch.no_grad():
         for i, (spec, p) in enumerate(zip(layer_specs(cfg32), params.layers)):
             # one layer's decode state at a time (the layers only write it)
             st = tm._init_layer_state(cfg32, spec, 4, max_len, torch.bfloat16, "cuda")
-            want = tm._prefill_layer(cfg32, spec, p, st, x_ref, positions, "ref")
-            got = tm._prefill_layer(cfg32, spec, p, st, x_ref, positions, None)
-            x_free = tm._prefill_layer(cfg32, spec, p, st, x_free, positions, None)
+            want = tm._prefill_layer(cfg32, spec, p, st, x_ref, positions, memory, "ref")
+            got = tm._prefill_layer(cfg32, spec, p, st, x_ref, positions, memory, None)
+            x_free = tm._prefill_layer(cfg32, spec, p, st, x_free, positions, memory_free,
+                                       None)
             with _float64_plain(torch):
                 p64 = tree_map(lambda t: t.double(), tm._as_dict(p))
                 want64 = tm._prefill_layer(cfg64, spec, p64, st, x_ref.double(), positions,
-                                           "ref")
+                                           memory64, "ref")
             scale = float((want64 - x_ref.double()).abs().max())
             e_k = float((got.double() - want64).abs().max()) / scale
             e_p = float((want.double() - want64).abs().max()) / scale
@@ -1629,6 +1658,24 @@ def _profiled_serve(torch, engine, wave):
     return f"{dev_us / wall_us:.3f}", shares, top
 
 
+def _card_init(torch, dtype, seed: int):
+    """An ``Init`` that draws on the card from a CUDA generator seeded with
+    ``seed``: the reference's shapes and scales (a float32 normal draw,
+    scaled, cast to ``dtype``), with other bits than ``init_params``'s CPU
+    draws. The host's one generator drew 150M-190M parameters a second,
+    over 200 s of the script's LM phases."""
+    from repro_torch.models.layers import Init
+
+    class CardInit(Init):
+        def normal(self, shape, stddev=None):
+            std = stddev if stddev is not None else shape[0] ** -0.5
+            x = torch.randn(shape, generator=self.generator, device="cuda",
+                            dtype=torch.float32)
+            return x.mul_(std).to(self.dtype)
+
+    return CardInit(torch.Generator(device="cuda").manual_seed(seed), dtype, "cuda")
+
+
 def _cut_depth(cfg, n_layers):
     """``cfg`` with its first ``n_layers`` layers (None: all of them):
     whole repeats of the pattern, then the first layers of the tail."""
@@ -1642,23 +1689,32 @@ def _cut_depth(cfg, n_layers):
 
 
 def phase_serve(torch, out: dict, arch: str, prompts_len=LM_PROMPTS, *,
-                layerwise: bool = True, profiled: bool = True) -> None:
-    """One LM served at full width and depth on seeded weights, one wave of
+                layerwise: bool = True, profiled: bool = True, n_layers: int | None = None,
+                smoke: bool = False) -> None:
+    """One LM served at full width (depth: see ``n_layers``) on seeded
+    weights drawn on the card (``_card_init``), one wave of
     ``prompts_len`` prompts, checked against the plain path (see the module
     docstring, phase 7); ``layerwise``: also the float32 prefill layer by
     layer against float64, ``profiled``: also a third serve under
-    torch.profiler."""
+    torch.profiler; ``n_layers``: the first layers only (default
+    SERVE_DEPTH's, else all); ``smoke``: the arch's smoke config. The
+    kernel-against-plain checks feed the stub frontends seeded normal
+    inputs (zero frames, the engine's, make every row's memory the same
+    and would hide a cross-attention fault); every MoE layer's output in
+    the kernel path's prefill is held against a per-token loop, and an
+    encoder's output against the plain path's."""
     import gc
 
     from repro_torch import configs
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.models import (count_params, init_decode_state, init_params,
-                                    layer_specs, prefill)
+    from repro_torch.models import count_params, init_decode_state, layer_specs, prefill
+    from repro_torch.models import transformer as tm
     from repro_torch.serve import Request, ServeEngine
 
-    cfg = _cut_depth(configs.get_config(arch), SERVE_DEPTH.get(arch))
+    cfg = (configs.get_smoke_config(arch) if smoke
+           else _cut_depth(configs.get_config(arch), n_layers or SERVE_DEPTH.get(arch)))
     t0 = time.perf_counter()
-    params = init_params(cfg, seed=0, device="cuda")
+    params = tm._draw_params(_card_init(torch, cfg.pdtype, 0), cfg)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     max_len = max(prompts_len) + LM_NEW_TOKENS
@@ -1670,7 +1726,11 @@ def phase_serve(torch, out: dict, arch: str, prompts_len=LM_PROMPTS, *,
         return [Request(i, p, max_new_tokens=LM_NEW_TOKENS) for i, p in enumerate(prompts)]
 
     kinds = [s.kind for s in layer_specs(cfg)]
-    per_pass = {"flash_attention": kinds.count("attn"), "rglru": kinds.count("rglru"),
+    # flash: every self-attention layer, every cross-attention and every
+    # encoder layer once a prefill
+    n_flash = (kinds.count("attn") + sum(s.cross_attn for s in layer_specs(cfg))
+               + cfg.encoder_layers)
+    per_pass = {"flash_attention": n_flash, "rglru": kinds.count("rglru"),
                 "rwkv6": kinds.count("rwkv"), "histogram": 0, "level_split": 0,
                 "split_scan": 0}
     torch.cuda.reset_peak_memory_stats()
@@ -1689,11 +1749,24 @@ def phase_serve(torch, out: dict, arch: str, prompts_len=LM_PROMPTS, *,
     _check(all(counts[n] > 0 for n, c in per_pass.items() if c), "a kernel of the path never ran")
 
     batch, _ = engine._make_batch(wave())
+    stubs = _stub_inputs(torch, cfg)
+    if stubs:     # the served wave's own prefill, for its first tokens
+        state = init_decode_state(cfg, 4, max_len, device="cuda")
+        logits_0, _ = prefill(cfg, params, state, batch)
+        del state
+        batch.update(stubs)
     reset_launch_counts()
     state = init_decode_state(cfg, 4, max_len, device="cuda")
-    logits_k, _ = prefill(cfg, params, state, batch)
+    moe_calls: list = []
+    with _recording_moe(moe_calls):
+        logits_k, _ = prefill(cfg, params, state, batch)
+    if not stubs:
+        logits_0 = logits_k
     _check(launch_counts() == per_pass, f"one prefill launched {launch_counts()}")
-    del state
+    _check(len(moe_calls) == sum(s.ffn == "moe" for s in layer_specs(cfg)),
+           f"{len(moe_calls)} MoE layers ran")
+    moe_lines = _moe_held(torch, cfg, moe_calls)
+    del state, moe_calls
     t0 = time.perf_counter()
     state = init_decode_state(cfg, 4, max_len, device="cuda")
     logits_r, _ = prefill(cfg, params, state, batch, force="ref")
@@ -1706,11 +1779,15 @@ def phase_serve(torch, out: dict, arch: str, prompts_len=LM_PROMPTS, *,
     del state
     _check(launch_counts() == per_pass, "the plain path launched a kernel")
     state = init_decode_state(cfg, 4, max_len, device="cuda")
-    logits_k32, _ = prefill(cfg32, params, state, batch)
-    del state
+    moe_calls = []
+    with _recording_moe(moe_calls):
+        logits_k32, _ = prefill(cfg32, params, state, batch)
+    moe_lines += _moe_held(torch, cfg32, moe_calls)
+    del state, moe_calls
     _check(launch_counts() == {n: 2 * c for n, c in per_pass.items()},
            f"the float32 prefill launched {launch_counts()}")
     err_f32 = float((logits_k32 - logits_32).abs().max())
+    enc_line = _encoder_held(torch, cfg, params, batch) if cfg.encoder_layers else None
     if layerwise:
         layer_errs, drift, profile = _layerwise_f32(torch, cfg32, params, batch, max_len)
         worst = max(range(len(layer_errs)), key=lambda i: layer_errs[i][0])
@@ -1728,7 +1805,7 @@ def phase_serve(torch, out: dict, arch: str, prompts_len=LM_PROMPTS, *,
     clear = (top2[:, 0] - top2[:, 1]) > tol
     agree = logits_k.argmax(-1) == logits_r.argmax(-1)
     _check(bool(agree[clear].all()), "first greedy token differs where the margin is clear")
-    _check([r.output[0] for r in first] == logits_k.argmax(-1).tolist(),
+    _check([r.output[0] for r in first] == logits_0.argmax(-1).tolist(),
            "the served first tokens are not the prefill's argmax")
     second = engine.serve(wave())
     _check([r.output for r in second] == [r.output for r in first], "two serves differ")
@@ -1736,8 +1813,10 @@ def phase_serve(torch, out: dict, arch: str, prompts_len=LM_PROMPTS, *,
                          else ("not measured", {}, []))
     print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{count_params(params) / 1e9:.2f}B {cfg.param_dtype} parameters (init {init_s:.1f} s: "
-          f"drawn on the host, moved one tensor at a time); "
-          f"prompts {list(prompts_len)}, {LM_NEW_TOKENS} new tokens each", flush=True)
+          f"drawn on the card); "
+          f"prompts {list(prompts_len)}, {LM_NEW_TOKENS} new tokens each"
+          + (f"; stub inputs for the checks {sorted(stubs)}, seeded normal, "
+             f"{[tuple(t.shape) for t in stubs.values()]}" if stubs else ""), flush=True)
     print(f"  prefill {st.prefill_s:.3f} s, decode {st.decode_steps} steps in "
           f"{st.decode_s:.3f} s = {st.decode_tokens_per_s:.1f} tok/s "
           f"({st.decode_s / st.decode_steps * 1e3:.1f} ms/step); second serve prefill "
@@ -1770,6 +1849,11 @@ def phase_serve(torch, out: dict, arch: str, prompts_len=LM_PROMPTS, *,
     if profiled:
         print(f"  profiled third serve: device busy {busy}, device time by kind {shares}; "
               f"top kernels {top}", flush=True)
+    if enc_line:
+        print(f"  encoder ({cfg.encoder_layers} layers, T={cfg.encoder_seq}): {enc_line}",
+              flush=True)
+    for line in moe_lines:
+        print(f"  {line}", flush=True)
     _add_lm_launches(out, {n: c for n, c in counts.items() if per_pass[n]})
     out[arch] = dict(prefill_s=st.prefill_s, decode_tok_s=st.decode_tokens_per_s,
                      peak_bytes=peak, init_s=init_s, logit_err_f32=err_f32,
@@ -1777,7 +1861,8 @@ def phase_serve(torch, out: dict, arch: str, prompts_len=LM_PROMPTS, *,
                      flash_launches=counts["flash_attention"])
     if layerwise:
         out[arch].update(layer_err_f32=e_k, layer_errs_f32=layer_errs)
-    del engine, params, first, second, logits_k, logits_r, logits_32, logits_k32
+    del engine, params, first, second, logits_0, logits_k, logits_r, logits_32, logits_k32
+    del batch, stubs
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1990,9 +2075,278 @@ def phase_train(torch, out: dict) -> None:
     shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# The rest of the zoo served (phase 15)
+# ---------------------------------------------------------------------------
+
+# (arch, the wave's prompt lengths, layers (None: all), the float32 layer
+# check): whisper-medium's decoder has 448 learned positions, so its wave
+# stays within them; Qwen3-MoE-235B at 2 of its 94 layers, whose float32
+# weights (940 GB) do not fit one 80 GB card (2 layers and the embeddings:
+# 6.22B parameters, 24.9 GB)
+ZOO_SERVE = (("whisper-medium", (384, 300, 200, 100), None, True),
+             ("internvl2-1b", (2048, 1500, 1024, 500), None, False),
+             ("qwen3-moe-235b-a22b", LM_PROMPTS, 2, False))
+# flash attention timed at the zoo's prefill shapes: (label, b, hq, hkv, tq,
+# tk, d, causal)
+ZOO_ATTENTION = (("(e) whisper encoder B=4 H=16 T=1500 D=64 bidirectional", 4, 16, 16, 1500,
+                  1500, 64, False),
+                 ("(f) whisper cross B=4 H=16 Tq=384 Tk=1500 D=64", 4, 16, 16, 384, 1500, 64,
+                  False),
+                 ("(g) InternVL2-1B B=4 Hq=14 Hkv=2 T=2048 D=64", 4, 14, 2, 2048, 2048, 64,
+                  True),
+                 ("(h) Qwen3-MoE B=4 Hq=64 Hkv=4 T=4096 D=128", 4, 64, 4, 4096, 4096, 128,
+                  True),
+                 ("(i) Arctic B=4 Hq=56 Hkv=8 T=1024 D=128", 4, 56, 8, 1024, 1024, 128, True))
+# Arctic-480B: its smoke config served (the dense residual end to end) and
+# one full-width layer (13.61B bfloat16 parameters, drawn on the card) on
+# ARCTIC_BATCH x ARCTIC_TOKENS tokens
+ARCTIC_SMOKE_PROMPTS = (1024, 800, 512, 256)
+ARCTIC_BATCH, ARCTIC_TOKENS = 4, 1024
+# an MoE layer's output against the per-token reference, each token's row
+# held to |err| <= tol x (sum over its kept slots of weight x max |expert
+# output| + max |out|) + tol x |out|: one rounding of each weighted expert
+# output and of the sum. The two run the expert products on other shapes
+# (the layer a batched product over (E, capacity, d), the reference one
+# product an expert over its kept tokens), whose sums in another order
+# round some elements of a bf16 expert output one ulp apart, and a token's
+# weighted outputs partly cancel: held to one ulp of the output row alone
+# (BF16_TOL x max |out|, ``_bf16_held``), Qwen3-MoE's layer 1 failed on an
+# NVIDIA H100 80GB HBM3 at 700 W (an output of -5.06 off by 0.0625, two
+# ulps; max |err| 0.25). In float32 the same rule at 1e-4 (ATTN_F32_TOL's
+# rtol), which holds the dispatch: a wrong or lost slot moves a token by a
+# whole term
+MOE_TOL = {"torch.bfloat16": BF16_TOL, "torch.float32": 1e-4}
+
+
+def _stub_inputs(torch, cfg, batch: int = 4) -> dict:
+    """The stub frontends' inputs as seeded normal draws on the card: the
+    audio stub's (batch, encoder_seq, d) frames, the vision stub's (batch,
+    num_patches, d) patches."""
+    gen = torch.Generator().manual_seed(5)
+    shapes = {}
+    if cfg.frontend == "audio_stub":
+        shapes["enc_embeds"] = (batch, cfg.encoder_seq, cfg.d_model)
+    if cfg.frontend == "vision_stub":
+        shapes["patch_embeds"] = (batch, cfg.num_patches, cfg.d_model)
+    return {k: torch.randn(shape, generator=gen).to("cuda") for k, shape in shapes.items()}
+
+
+@contextlib.contextmanager
+def _recording_moe(calls: list):
+    """Within it, every ``moe_apply`` the transformer calls appends
+    (its parameters, its input, its output) to ``calls``."""
+    from repro_torch.models import transformer as tm
+
+    inner = tm.moe_apply
+
+    def record(p, x, **kw):
+        y = inner(p, x, **kw)
+        calls.append((p, x, y))
+        return y
+
+    tm.moe_apply = record
+    try:
+        yield
+    finally:
+        tm.moe_apply = inner
+
+
+def _moe_per_token(torch, p, x, top_k: int, capacity_factor: float, act: str):
+    """The MoE FFN written per token, with no sort, gather table or
+    scatter: route each token to its top_k experts (weights renormalised);
+    a slot (token t, choice j) is kept if fewer than ``cap`` slots of its
+    expert come before it in the order t·k + j; each expert runs its FFN on
+    the tokens whose slot it keeps, in x's dtype with float32
+    accumulation, and the weighted outputs are summed per token in
+    float32. Returns (y, the sum over each token's kept slots of weight x
+    max |expert output| (B, S, 1), slots dropped, slots)."""
+    import math
+
+    import torch.nn.functional as F
+
+    from repro_torch.models.layers import ffn_apply
+
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    t, e = xt.shape[0], p["router"].shape[1]
+    probs = torch.softmax(torch.matmul(xt, p["router"].to(xt.dtype)).float(), dim=-1)
+    top_p, top_e = torch.topk(probs, top_k, dim=-1)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    cap = max(8, math.ceil(t * top_k * capacity_factor / e))
+    gelu = lambda v: F.gelu(v, approximate="tanh")  # noqa: E731
+    fn = F.silu if act == "swiglu" else gelu
+    flat_e, flat_p = top_e.reshape(-1), top_p.reshape(-1)
+    y = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+    terms = torch.zeros((t, 1), dtype=torch.float32, device=x.device)
+    kept = 0
+    for ex in range(e):
+        slots = (flat_e == ex).nonzero()[:, 0][:cap]       # ascending t·k + j
+        if not len(slots):
+            continue
+        kept += len(slots)
+        tok = slots // top_k                                 # distinct tokens
+        xe = xt[tok]
+        if act in ("swiglu", "geglu"):
+            h = (fn(torch.matmul(xe, p["w_gate"][ex].to(xe.dtype)))
+                 * torch.matmul(xe, p["w_up"][ex].to(xe.dtype)))
+        else:
+            h = gelu(torch.matmul(xe, p["w_up"][ex].to(xe.dtype)))
+        o = torch.matmul(h, p["w_down"][ex].to(h.dtype))
+        y[tok] = y[tok] + o.float() * flat_p[slots][:, None]
+        terms[tok] = terms[tok] + flat_p[slots][:, None] * o.float().abs().amax(-1, keepdim=True)
+    y = y.to(x.dtype).reshape(b, s, d)
+    if "dense" in p:
+        y = y + ffn_apply(p["dense"], x, act)
+    return y, terms.reshape(b, s, 1), t * top_k - kept, t * top_k
+
+
+def _moe_held(torch, cfg, calls: list) -> list[str]:
+    """Each recorded MoE layer's output against :func:`_moe_per_token` on
+    its input (see MOE_TOL); one line each with the share of slots dropped
+    at the config's capacity factor."""
+    lines = []
+    for i, (p, x, y) in enumerate(calls):
+        want, terms, dropped, n_slots = _moe_per_token(torch, p, x, cfg.top_k,
+                                                       cfg.capacity_factor, cfg.ffn_act)
+        tol = MOE_TOL[str(y.dtype)]
+        row = terms + want.float().abs().amax(-1, keepdim=True)
+        err = _held(torch, f"{cfg.name} layer {i + 1} {y.dtype} MoE against the per-token "
+                           "reference", y, want, tol * row, tol)
+        lines.append(f"MoE layer {i + 1} ({str(y.dtype).removeprefix('torch.')}): "
+                     f"{n_slots:,} slots of {x.shape[0] * x.shape[1]:,} tokens, {dropped:,} "
+                     f"dropped ({dropped / n_slots:.4f}) at capacity factor "
+                     f"{cfg.capacity_factor}; against the per-token reference max|err| "
+                     f"{err:.3g} (atol {tol:.3g} x (sum of weight x max|expert output| + max "
+                     f"|out|) in [{float(row.min()):.3g}, {float(row.max()):.3g}] a token, "
+                     f"rtol {tol:.3g})")
+        del want, terms, row
+    return lines
+
+
+def _encoder_held(torch, cfg, params, batch) -> str:
+    """The encoder's output as a whole: in bf16, the kernel path within
+    LOGIT_NOISE_FACTOR x the plain path's own bf16 noise (its distance from
+    the plain path in float32) of the plain path and of the float32 run; in
+    float32, the kernel path no further from the plain path run in float64
+    than the plain float32 path is, or within LAYER_F32_TOL of the output's
+    largest |value|."""
+    import types
+
+    from repro_torch.models import transformer as tm
+    from repro_torch.train.optimizer import tree_map
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    with torch.no_grad():
+        mem_k = tm._memory(cfg, params, batch, None)
+        mem_r = tm._memory(cfg, params, batch, "ref")
+        mem_32 = tm._memory(cfg32, params, batch, "ref")
+        mem_k32 = tm._memory(cfg32, params, batch, None)
+
+        def wide(tree):
+            return tree_map(lambda t: t.double(), tm._as_dict(tree))
+
+        enc64 = types.SimpleNamespace(embed=params.embed, enc_norm=wide(params.enc_norm),
+                                      encoder=[wide(p) for p in params.encoder])
+        with _float64_plain(torch):
+            mem_64 = tm._memory(dataclasses.replace(cfg, compute_dtype="float64"), enc64,
+                                {"enc_embeds": batch["enc_embeds"].double()}, "ref")
+    _check(bool(torch.isfinite(mem_k).all()), "encoder output not finite")
+    noise = float((mem_r.float() - mem_32).abs().max())
+    err = float((mem_k.float() - mem_r.float()).abs().max())
+    err32 = float((mem_k.float() - mem_32).abs().max())
+    _check(err <= LOGIT_NOISE_FACTOR * noise and err32 <= LOGIT_NOISE_FACTOR * noise,
+           f"encoder output: kernel path {err:.4g} from the plain path, {err32:.4g} from "
+           f"float32, beyond {LOGIT_NOISE_FACTOR:g} x the plain path's bf16 noise {noise:.4g}")
+    scale = float(mem_64.abs().max())
+    e_k = float((mem_k32.double() - mem_64).abs().max()) / scale
+    e_p = float((mem_32.double() - mem_64).abs().max()) / scale
+    _check(e_k <= max(e_p, LAYER_F32_TOL),
+           f"float32 encoder output: kernel path {e_k:.3g} of max|out| from float64, the "
+           f"plain float32 path {e_p:.3g}")
+    return (f"bf16 output kernel vs plain max|err| {err:.4g}, vs plain float32 {err32:.4g} "
+            f"(tol {LOGIT_NOISE_FACTOR * noise:.4g} = {LOGIT_NOISE_FACTOR:g} x the plain "
+            f"path's bf16 noise {noise:.4g}); float32 output from the float64 plain path: "
+            f"kernel {e_k:.3g}, plain float32 {e_p:.3g} of max|out| {scale:.4g}")
+
+
+def _arctic_layer(torch, out: dict) -> None:
+    """One full-width Arctic-480B layer (attention, 128 experts of 4864
+    top-2 and the dense residual FFN, bfloat16 parameters) on ARCTIC_BATCH
+    x ARCTIC_TOKENS tokens through the prefill's layer path: its MoE output
+    against the per-token reference. The weights are drawn on the card by a
+    CUDA generator at the reference's scales (``_card_init``)."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import layer_specs
+    from repro_torch.models import transformer as tm
+
+    cfg = _cut_depth(configs.get_config("arctic-480b"), 1)
+    spec = layer_specs(cfg)[0]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    init = _card_init(torch, cfg.pdtype, 0)
+    p = tm._init_layer(init, cfg, spec)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tm._leaves(p))
+    x = torch.randn((ARCTIC_BATCH, ARCTIC_TOKENS, cfg.d_model), generator=init.generator,
+                    device="cuda", dtype=cfg.cdtype)
+    positions = torch.arange(ARCTIC_TOKENS, device="cuda")
+    st = tm._init_layer_state(cfg, spec, ARCTIC_BATCH, ARCTIC_TOKENS, torch.bfloat16, "cuda")
+    calls: list = []
+    reset_launch_counts()
+    with torch.no_grad(), _recording_moe(calls):
+        tm._prefill_layer(cfg, spec, p, st, x, positions, None, None)     # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = tm._prefill_layer(cfg, spec, p, st, x, positions, None, None)
+        torch.cuda.synchronize()
+        layer_s = time.perf_counter() - t0
+    _check(launch_counts()["flash_attention"] == 2, f"the layer launched {launch_counts()}")
+    _check(bool(torch.isfinite(y).all()) and y.shape == x.shape, "Arctic layer output malformed")
+    lines = _moe_held(torch, cfg, calls[1:])
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  arctic-480b, one full-width layer: d_model {cfg.d_model}, {cfg.n_experts} "
+          f"experts of {cfg.d_ff_expert} top-{cfg.top_k} and a dense residual FFN of "
+          f"{cfg.d_ff}, {n_params / 1e9:.2f}B {cfg.param_dtype} parameters drawn on the card "
+          f"in {init_s:.1f} s; {ARCTIC_BATCH} x {ARCTIC_TOKENS} tokens through the layer in "
+          f"{layer_s:.3f} s (flash launched once a pass); peak memory {peak / 2**30:.2f} GiB",
+          flush=True)
+    for line in lines:
+        print(f"  {line}", flush=True)
+    out["arctic-480b-layer"] = dict(init_s=init_s, layer_s=layer_s, peak_bytes=peak)
+    del p, x, y, st, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_zoo_serve(torch, out: dict) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    bf16 = torch.bfloat16
+    print("  flash attention at the zoo's prefill shapes (bf16):", flush=True)
+    for label, *shape, causal in ZOO_ATTENTION:
+        _attention_case(torch, gen, label, *shape, bf16, causal=causal)
+    torch.cuda.empty_cache()
+    for arch, prompts_len, n_layers, layerwise in ZOO_SERVE:
+        t0 = time.perf_counter()
+        print(f"  -- {arch}", flush=True)
+        phase_serve(torch, out, arch, prompts_len, layerwise=layerwise, profiled=False,
+                    n_layers=n_layers)
+        print(f"  {arch} took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    print("  -- arctic-480b (smoke config)", flush=True)
+    phase_serve(torch, out, "arctic-480b", ARCTIC_SMOKE_PROMPTS, layerwise=False,
+                profiled=False, smoke=True)
+    _arctic_layer(torch, out)
+    print(f"  arctic-480b took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
     import torch
 
@@ -2033,7 +2387,9 @@ def main() -> int:
             (11, "the row-sharded search", phase_sharded_search),
             (12, "the multi-tenant search service and chaos", phase_service),
             (13, "the four dense LMs served", phase_dense_serve),
-            (14, "TinyLlama-1.1B trained and resumed", phase_train)):
+            (14, "TinyLlama-1.1B trained and resumed", phase_train),
+            (15, "the rest of the zoo served: whisper, InternVL, Qwen3-MoE, Arctic",
+             phase_zoo_serve)):
         if n not in phases:
             continue
         print(f"[{n}] {title}", flush=True)

@@ -3,11 +3,12 @@ package's ``configs/``.
 
 ``get_config(arch_id)`` returns the FULL ArchConfig as assigned;
 ``get_smoke_config(arch_id)`` a reduced config of the same family for CPU
-tests. The port carries the dense transformers (Qwen2-1.5B, TinyLlama-1.1B,
-Gemma-2B, Gemma3-12B: flash attention), RecurrentGemma-9B (flash attention
-and RG-LRU) and RWKV6-7B (RWKV-6). The other architectures of the JAX
-package (mixture-of-experts, whisper, InternVL) raise NotImplementedError
-until their modules are ported.
+tests. The port carries all ten architectures of the JAX package: the dense
+transformers (Qwen2-1.5B, TinyLlama-1.1B, Gemma-2B, Gemma3-12B), the
+mixture-of-experts (Qwen3-MoE-235B, Arctic-480B), whisper-medium's
+encoder-decoder and InternVL2-1B's LM behind its vision stub (flash
+attention), RecurrentGemma-9B (flash attention and RG-LRU) and RWKV6-7B
+(RWKV-6). An unknown id raises KeyError.
 """
 from __future__ import annotations
 
@@ -25,8 +26,7 @@ ARCH_IDS = (
     "arctic_480b",
     "internvl2_1b",
 )
-PORTED = ("qwen2_1_5b", "gemma3_12b", "tinyllama_1_1b", "gemma_2b", "rwkv6_7b",
-          "recurrentgemma_9b")
+PORTED = ARCH_IDS
 
 # canonical external ids (dashes) → module names
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
@@ -45,9 +45,6 @@ def resolve(arch_id: str) -> str:
 
 def _module(arch_id: str):
     name = resolve(arch_id)
-    if name in ARCH_IDS and name not in PORTED:
-        raise NotImplementedError(f"{arch_id}: this architecture is not ported yet "
-                                  f"(ported: {', '.join(PORTED)})")
     if name not in ARCH_IDS:
         raise KeyError(f"unknown architecture {arch_id!r}")
     return importlib.import_module(f"repro_torch.configs.{name}")

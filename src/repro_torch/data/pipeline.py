@@ -83,11 +83,20 @@ class Stream:
 
 def make_lm_stream(batch: int, seq_len: int, vocab: int, seed: int = 0,
                    extras: dict[str, tuple] | None = None, *, device=None) -> Stream:
-    """The ``TokenStream`` of ``seed`` as a :class:`Stream` on ``device``.
-    ``extras`` (the audio and vision stubs' inputs) are not ported."""
-    if extras:
-        raise NotImplementedError(
-            f"stub-frontend inputs {sorted(extras)}: the audio and vision stubs are "
-            "not ported yet (ROADMAP Queue 1 item 8)")
+    """The ``TokenStream`` of ``seed`` as a :class:`Stream` on ``device``,
+    with the stub frontends' inputs: ``extras`` maps a batch key to its
+    ``(shape, dtype)``, drawn as the reference draws them. The reference
+    seeds that draw with ``hash(("extras", seed, step))``, a string hash
+    that Python randomises per process unless ``PYTHONHASHSEED`` is fixed,
+    so the extras equal the reference's within one process only."""
     ts = TokenStream(batch, seq_len, vocab, seed=seed)
-    return Stream(ts.batch_at, device)
+
+    def source(step: int) -> dict[str, np.ndarray]:
+        b = ts.batch_at(step)
+        if extras:
+            rng = np.random.default_rng(hash(("extras", seed, step)) % (2**31))
+            for name, (shape, dtype) in extras.items():
+                b[name] = rng.normal(size=shape).astype(dtype)
+        return b
+
+    return Stream(source, device)

@@ -12,7 +12,10 @@ overrides it for tests:
                       (the GBDT histograms as a scatter, with subtraction),
                       cheap enough to set beside the kernel at full size
                       where the one-hot oracle is not
-    force=None        CUDA tensor → kernel, CPU tensor → plain path
+    force=None        CUDA tensor → kernel, CPU tensor → plain path (for
+                      attention over more than 2,048 queries the blocked
+                      plain version, ``ref.attention_xla_blocked``, as the
+                      JAX package's CPU path takes)
 
 On a CUDA tensor the kernel runs or the call raises: nothing falls back.
 Unlike the TPU dispatch, which sends ragged shapes to the plain path, the
@@ -123,7 +126,13 @@ def attention(q, k, v, *, causal=True, window=None, scale=None,
                 window=window, scale=scale, logit_softcap=logit_softcap)
 
         return _launch(kernel, plain, q, k, v)
-    return _launch(plain, plain, q, k, v) if q.is_cuda else plain(q, k, v)
+    if q.is_cuda:
+        return _launch(plain, plain, q, k, v)
+    if force is None and q.shape[2] > 2048:
+        return _ref.attention_xla_blocked(
+            q, k, v, causal=causal, window=window, scale=scale,
+            logit_softcap=logit_softcap, matmul_dtype=matmul_dtype)
+    return plain(q, k, v)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window=None, scale=None,

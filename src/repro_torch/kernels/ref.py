@@ -6,8 +6,9 @@ CUDA kernels in ``csrc/`` must compute.
 
 * GBDT: ``histogram_ref``, ``split_scan_ref``, ``level_split_ref`` (one-hot
   contraction, cumsum, gain, masked first argmax).
-* LM: ``attention_ref``, ``decode_attention_ref``, ``rglru_ref``,
-  ``rwkv6_ref``. Attention tensors are ``(batch, heads, seq, head_dim)``;
+* LM: ``attention_ref``, ``attention_xla_blocked`` (the same function in
+  query blocks, for long sequences on the CPU), ``decode_attention_ref``,
+  ``rglru_ref``, ``rwkv6_ref``. Attention tensors are ``(batch, heads, seq, head_dim)``;
   with GQA, ``k``/``v`` have ``n_kv_heads`` dividing ``n_heads`` and are
   logically repeated. The recurrences loop over the time axis step by step.
 """
@@ -17,7 +18,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["histogram_ref", "split_gains_ref", "split_scan_ref", "level_split_ref",
-           "attention_ref", "decode_attention_ref", "rglru_ref", "rwkv6_ref"]
+           "attention_ref", "attention_xla_blocked", "decode_attention_ref", "rglru_ref",
+           "rwkv6_ref"]
 
 #: largest (rows, F, B, 2) float32 one-hot block histogram_ref builds at once
 _ONE_HOT_BYTES = 256 << 20
@@ -155,6 +157,46 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
     if matmul_dtype == "input":
         probs = probs.to(v.dtype).float()
     return torch.matmul(probs, vf.float()).to(q.dtype)
+
+
+def attention_xla_blocked(q, k, v, *, causal: bool = True, window: int | None = None,
+                          scale: float | None = None, logit_softcap: float | None = None,
+                          block_q: int = 2048, matmul_dtype: str = "float32"):
+    """:func:`attention_ref` with the queries in blocks of ``block_q``, each
+    block attending only to the key range it can reach (the causal end,
+    the window's start), so no (Tq, Tk) logits tensor exists: the largest
+    is (block_q, reachable keys). The JAX package's XLA path for long
+    sequences; the same masking conventions and the same result."""
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    if tq <= block_q:
+        return attention_ref(q, k, v, causal=causal, window=window, scale=scale,
+                             logit_softcap=logit_softcap, matmul_dtype=matmul_dtype)
+    kf = _repeat_kv(k, hq // hkv).float()
+    vf = _repeat_kv(v, hq // hkv)
+    sc = scale if scale is not None else d ** -0.5
+    offset = tk - tq                     # absolute position of query 0
+    outs = []
+    for start in range(0, tq, block_q):
+        stop = min(start + block_q, tq)
+        q_lo, q_hi = start + offset, stop - 1 + offset
+        k_lo = 0 if window is None else max(0, q_lo - window + 1)
+        k_hi = min(q_hi if causal else tk - 1, tk - 1)
+        logits = torch.matmul(q[:, :, start:stop].float(),
+                              kf[:, :, k_lo:k_hi + 1].transpose(-1, -2)) * sc
+        logits = _softcap(logits, logit_softcap)
+        q_pos = torch.arange(start, stop, device=q.device) + offset
+        k_pos = torch.arange(k_lo, k_hi + 1, device=q.device)
+        mask = torch.ones((stop - start, k_hi + 1 - k_lo), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_pos[None, :] <= q_pos[:, None]
+        if window is not None:
+            mask &= (q_pos[:, None] - k_pos[None, :]) < window
+        probs = torch.softmax(logits.masked_fill(~mask, -torch.inf), dim=-1)
+        if matmul_dtype == "input":
+            probs = probs.to(v.dtype).float()
+        outs.append(torch.matmul(probs, vf[:, :, k_lo:k_hi + 1].float()).to(q.dtype))
+    return torch.cat(outs, dim=2)
 
 
 def decode_attention_ref(q, k_cache, v_cache, cache_len, *, window: int | None = None,

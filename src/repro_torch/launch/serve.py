@@ -3,9 +3,10 @@
 * LM token serving:
 
       python -m repro_torch.launch.serve --arch recurrentgemma-9b --smoke --device cpu
+      python -m repro_torch.launch.serve --arch whisper-medium --smoke --device cpu
       python -m repro_torch.launch.serve --arch rwkv6-7b           # on the card
 
-  builds a ServeEngine on freshly initialised (seeded) weights and drives a
+  (any of the ten architectures of ``repro_torch.configs``) builds a ServeEngine on freshly initialised (seeded) weights and drives a
   synthetic stream of requests through prefill + greedy decode in waves of
   ``--batch``, reporting tokens/s.
 

@@ -43,7 +43,7 @@ def main(argv: list[str] | None = None) -> int:
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
     stream = make_lm_stream(args.batch, args.seq_len, cfg.vocab, seed=args.seed,
-                            device=args.device)
+                            extras=_stub_extras(cfg, args.batch), device=args.device)
     opt = make_optimizer(args.optimizer, lr=args.lr)
     trainer = Trainer(cfg, opt, stream, ckpt_dir=args.ckpt_dir,
                       ckpt_every=args.ckpt_every, dp_mode=args.dp_mode, device=args.device)
@@ -58,6 +58,15 @@ def main(argv: list[str] | None = None) -> int:
     print(f"done: final loss {final:.4f}  nan_skips={metrics.nan_skips} "
           f"retries={metrics.retries} restores={metrics.restores}")
     return 0
+
+
+def _stub_extras(cfg, batch):
+    extras = {}
+    if cfg.frontend == "audio_stub":
+        extras["enc_embeds"] = ((batch, cfg.encoder_seq, cfg.d_model), "float32")
+    if cfg.frontend == "vision_stub":
+        extras["patch_embeds"] = ((batch, cfg.num_patches, cfg.d_model), "float32")
+    return extras or None
 
 
 if __name__ == "__main__":

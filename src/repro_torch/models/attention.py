@@ -9,8 +9,9 @@ share one parameter dict:
 The inner products go through ``ops.attention`` (the flash-attention kernel
 on the card) and ``ops.decode_attention`` (plain PyTorch everywhere, as in
 the JAX package). ``force`` is passed through to ``ops.attention``.
-Cross-attention (whisper's decoder) is not ported yet:
-``transformer`` raises where a config asks for it.
+Cross-attention (``AttnCfg.cross``, whisper's decoder) takes K and V from
+an encoder ``memory``, with no rotary and no causal mask; its cache holds
+the encoder's K/V, written by the prefill and only read by decode steps.
 """
 from __future__ import annotations
 
@@ -34,9 +35,10 @@ class AttnCfg:
     bias: bool = False
     qk_norm: bool = False
     window: int | None = None          # sliding-window size (None = global)
-    rope_theta: float | None = 10000.0  # None = no rotary
+    rope_theta: float | None = 10000.0  # None = no rotary (whisper: learned abs)
     logit_softcap: float | None = None
     scale: float | None = None         # None → head_dim ** −0.5
+    cross: bool = False                # cross-attention (K/V from encoder memory)
     matmul_dtype: str = "float32"      # "input": bf16 operands, f32 accum
 
 
@@ -58,15 +60,19 @@ def init_attention(init: Init, cfg: AttnCfg) -> dict:
     return p
 
 
-def _qkv(params, cfg: AttnCfg, x: torch.Tensor, positions: torch.Tensor):
+def _heads(params, cfg: AttnCfg, x: torch.Tensor, which: str, n: int) -> torch.Tensor:
     b, t, _ = x.shape
-    q = dense(params["wq"], x, params.get("bq")).reshape(b, t, cfg.n_heads, cfg.head_dim)
-    k = dense(params["wk"], x, params.get("bk")).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-    v = dense(params["wv"], x, params.get("bv")).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    return dense(params[f"w{which}"], x, params.get(f"b{which}")).reshape(b, t, n, cfg.head_dim)
+
+
+def _qkv(params, cfg: AttnCfg, x: torch.Tensor, kv_x: torch.Tensor, positions: torch.Tensor):
+    q = _heads(params, cfg, x, "q", cfg.n_heads)
+    k = _heads(params, cfg, kv_x, "k", cfg.n_kv_heads)
+    v = _heads(params, cfg, kv_x, "v", cfg.n_kv_heads)
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q)
         k = rmsnorm(params["k_norm"], k)
-    if cfg.rope_theta is not None:
+    if cfg.rope_theta is not None and not cfg.cross:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     # (B, H, T, Dh)
@@ -82,10 +88,11 @@ def _attend(params, cfg: AttnCfg, q, k, v, causal: bool, force):
 
 
 def attn_train(params, cfg: AttnCfg, x: torch.Tensor, positions: torch.Tensor,
-               causal: bool = True, *, force=None):
-    """x: (B, T, d). Returns (B, T, d)."""
-    q, k, v = _qkv(params, cfg, x, positions)
-    return _attend(params, cfg, q, k, v, causal, force)
+               memory: torch.Tensor | None = None, causal: bool = True, *, force=None):
+    """x: (B, T, d). ``memory`` (B, Tm, d) switches to cross-attention.
+    Returns (B, T, d)."""
+    q, k, v = _qkv(params, cfg, x, memory if cfg.cross else x, positions)
+    return _attend(params, cfg, q, k, v, causal and not cfg.cross, force)
 
 
 def init_kv_cache(cfg: AttnCfg, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -96,25 +103,36 @@ def init_kv_cache(cfg: AttnCfg, batch: int, max_len: int, dtype=torch.bfloat16,
 
 
 def attn_prefill(params, cfg: AttnCfg, x: torch.Tensor, positions: torch.Tensor,
-                 cache: dict, *, force=None):
-    """Full-sequence attention that also writes cache[:, :, 0:T] in place.
-    Returns (out, cache)."""
-    q, k, v = _qkv(params, cfg, x, positions)
+                 cache: dict, memory: torch.Tensor | None = None, *, force=None):
+    """Full-sequence attention that also writes cache[:, :, 0:T] in place
+    (T the memory's length for cross-attention). Returns (out, cache)."""
+    q, k, v = _qkv(params, cfg, x, memory if cfg.cross else x, positions)
     t = k.shape[2]
     cache["k"][:, :, :t] = k.to(cache["k"].dtype)
     cache["v"][:, :, :t] = v.to(cache["v"].dtype)
-    return _attend(params, cfg, q, k, v, True, force), cache
+    return _attend(params, cfg, q, k, v, not cfg.cross, force), cache
 
 
 def attn_decode(params, cfg: AttnCfg, x: torch.Tensor, pos: int, cache: dict):
-    """One-token step. x: (B, 1, d); pos: index of the new token. Writes
-    the new K/V at ``pos`` in place, then attends over cache[0:pos+1]."""
+    """One-token step. x: (B, 1, d); pos: index of the new token.
+
+    Self-attention writes the new K/V at ``pos`` in place, then attends over
+    cache[0:pos+1]. Cross-attention attends over the whole cache (the
+    encoder's K/V from the prefill) and writes nothing."""
     b = x.shape[0]
     positions = torch.full((1,), int(pos), dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _qkv(params, cfg, x, positions)          # (B, H, 1, Dh)
-    cache["k"][:, :, pos:pos + 1] = k_new.to(cache["k"].dtype)
-    cache["v"][:, :, pos:pos + 1] = v_new.to(cache["v"].dtype)
+    if cfg.cross:
+        q = _heads(params, cfg, x, "q", cfg.n_heads)
+        if cfg.qk_norm:
+            q = rmsnorm(params["q_norm"], q)
+        q = q.transpose(1, 2)                                      # (B, H, 1, Dh)
+        cache_len = cache["k"].shape[2]
+    else:
+        q, k_new, v_new = _qkv(params, cfg, x, x, positions)       # (B, H, 1, Dh)
+        cache["k"][:, :, pos:pos + 1] = k_new.to(cache["k"].dtype)
+        cache["v"][:, :, pos:pos + 1] = v_new.to(cache["v"].dtype)
+        cache_len = int(pos) + 1
     o = ops.decode_attention(
-        q, cache["k"], cache["v"], int(pos) + 1, window=cfg.window, scale=cfg.scale,
+        q, cache["k"], cache["v"], cache_len, window=cfg.window, scale=cfg.scale,
         logit_softcap=cfg.logit_softcap, matmul_dtype=cfg.matmul_dtype)
     return dense(params["wo"], o.transpose(1, 2).reshape(b, 1, cfg.n_heads * cfg.head_dim)), cache

@@ -1,0 +1,111 @@
+"""Mixture-of-Experts FFN with capacity-based sorted dispatch.
+
+The port of the JAX package's ``models/moe.py``, which runs outside any
+Pallas kernel: a router, a stable sort of the token slots by expert, a
+dense (E, capacity, d) buffer gathered from the tokens, the expert products
+as batched matmuls, and a weighted combine back to token order. Slots whose
+rank in their expert's group reaches the capacity are dropped (Switch-style
+token dropping; ``capacity_factor`` sets the rate), as in the reference:
+  * ``torch.argsort(..., stable=True)``, as ``jnp.argsort`` is stable, so the
+    same slots are dropped;
+  * the reference's ``.at[...].set(..., mode="drop")`` drops out-of-range
+    slots silently where PyTorch raises, so the overflow slots are sent to
+    one spare entry of the tables, which is sliced off;
+  * the expert products run in the compute dtype with float32 accumulation,
+    rounded once, as ``_expert_einsum``;
+  * the combine is the reference's float32 scatter-add of each kept slot's
+    weighted output into its token, computed as a gather: every token reads
+    its ``top_k`` slots (a dropped slot reads a zero row) and sums them in
+    float32, with no atomics, so a rerun on the card gives the same bits.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import Init, dense, ffn_apply, init_ffn
+
+__all__ = ["init_moe", "moe_apply", "aux_load_balance_loss"]
+
+
+def init_moe(init: Init, d: int, n_experts: int, d_ff: int, *,
+             act: str = "swiglu", dense_residual_ff: int = 0) -> dict:
+    p = {
+        "router": init.normal((d, n_experts)),
+        "w_gate": init.normal((n_experts, d, d_ff)),
+        "w_up": init.normal((n_experts, d, d_ff)),
+        "w_down": init.normal((n_experts, d_ff, d), stddev=d_ff ** -0.5),
+    }
+    if dense_residual_ff:
+        p["dense"] = init_ffn(init, d, dense_residual_ff, act)
+    return p
+
+
+def _expert_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(E, C, i) x (E, i, o) in a's dtype, float32 accumulation."""
+    return torch.matmul(a, b.to(a.dtype))
+
+
+def capacity(n_tokens: int, top_k: int, capacity_factor: float, n_experts: int) -> int:
+    """Slots per expert, computed on the host as the reference does."""
+    n_slots = n_tokens * top_k
+    return max(8, int(-(-n_slots * capacity_factor // n_experts)))
+
+
+def moe_apply(params, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25,
+              act: str = "swiglu") -> torch.Tensor:
+    """x: (B, S, d) → (B, S, d). See the module docstring for the dispatch."""
+    b, s, d = x.shape
+    e = params["router"].shape[1]
+    t = b * s
+    xt = x.reshape(t, d)
+    dev = x.device
+
+    logits = dense(params["router"], xt).float()                      # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.topk(probs, top_k, dim=-1)                   # (T, k)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+
+    # -- sorted capacity dispatch ---------------------------------------
+    n_slots = t * top_k
+    cap = capacity(t, top_k, capacity_factor, e)
+    slot_expert = top_e.reshape(-1)                                   # (T·k,)
+    order = torch.argsort(slot_expert, stable=True)
+    sorted_expert = slot_expert[order]
+    counts = torch.bincount(slot_expert, minlength=e)
+    starts = torch.cumsum(counts, 0) - counts
+    pos_in_grp = torch.arange(n_slots, device=dev) - starts[sorted_expert]
+    # each sorted slot's cell of the flat (E·cap) table; overflow → spare cell
+    cell = torch.where(pos_in_grp < cap, sorted_expert * cap + pos_in_grp, e * cap)
+    table = torch.full((e * cap + 1,), t, dtype=torch.long, device=dev).scatter(
+        0, cell, order // top_k)[:-1].view(e, cap)
+
+    # -- expert FFN over (E, cap, d) -------------------------------------
+    x_pad = torch.cat([xt, xt.new_zeros((1, d))])
+    xe = x_pad[table]                                                 # (E, C, d)
+    if act in ("swiglu", "geglu"):
+        fn = F.silu if act == "swiglu" else (lambda v: F.gelu(v, approximate="tanh"))
+        h = fn(_expert_matmul(xe, params["w_gate"])) * _expert_matmul(xe, params["w_up"])
+    else:
+        h = F.gelu(_expert_matmul(xe, params["w_up"]), approximate="tanh")
+    out = _expert_matmul(h, params["w_down"])                         # (E, C, d)
+
+    # -- weighted combine back to token order ----------------------------
+    # slot_cell[i]: the table cell of slot i (token i // k, choice i % k)
+    slot_cell = torch.empty_like(cell).scatter_(0, order, cell)
+    out_pad = torch.cat([out.reshape(e * cap, d), out.new_zeros((1, d))])
+    weight = torch.where(slot_cell < e * cap, top_p.reshape(-1), 0.0)
+    y = (out_pad[slot_cell].float() * weight[:, None]).view(t, top_k, d).sum(1)
+    y = y.to(x.dtype).reshape(b, s, d)
+
+    if "dense" in params:   # Arctic-style parallel dense residual branch
+        y = y + ffn_apply(params["dense"], x, act)
+    return y
+
+
+def aux_load_balance_loss(router_probs: torch.Tensor, top_e: torch.Tensor,
+                          n_experts: int) -> torch.Tensor:
+    """Switch-style auxiliary loss: E · Σ_e f_e · P_e."""
+    frac_tokens = torch.mean(F.one_hot(top_e[..., 0], n_experts).float(), dim=0)
+    frac_probs = torch.mean(router_probs.float(), dim=0)
+    return n_experts * torch.sum(frac_tokens * frac_probs)

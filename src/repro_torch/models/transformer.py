@@ -24,10 +24,11 @@ The port of the JAX package's ``models/transformer.py``:
     per layer, updated in place by :func:`prefill` and :func:`decode_step`.
   * ``force`` is threaded down to ``ops`` so a caller can run the plain
     path on the card (``force="ref"``).
-
-Not ported yet (each raises NotImplementedError where a config needs it):
-mixture-of-experts FFNs, cross-attention and the encoder (whisper), the
-vision and audio stubs and learned positions.
+  * The encoder-decoder (whisper) runs a bidirectional encoder over the
+    audio stub's frame embeddings (``batch["enc_embeds"]``, (B, Te, d)) and
+    feeds its output to every decoder layer's cross-attention; the vision
+    stub's ``batch["patch_embeds"]`` (B, P, d) overwrite the leading token
+    embeddings; learned absolute positions are added to the embeddings.
 """
 from __future__ import annotations
 
@@ -50,6 +51,7 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.layers import Init, ParamTree, ffn_apply, init_ffn, init_norm, \
     layernorm, rmsnorm
+from repro_torch.models.moe import init_moe, moe_apply
 
 __all__ = ["LayerSpec", "ArchConfig", "LMParams", "init_params", "params_from_reference",
            "params_to_reference", "forward_hidden", "lm_loss", "train_loss",
@@ -89,15 +91,23 @@ class ArchConfig:
     attn_matmul: str = "float32"       # "input": bf16 QK/PV operands
     embed_scale: bool = False          # scale embeddings by sqrt(d_model)
     tie_embeddings: bool = True
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    moe_dense_residual: bool = False
+    capacity_factor: float = 1.25
     # --- recurrent ---
     lru_width: int = 0
     conv_width: int = 4
     rwkv_head_size: int = 64
-    # --- not ported yet: a config that sets one is refused (_check_ported) ---
-    n_experts: int = 0
+    # --- encoder-decoder / frontends ---
     encoder_layers: int = 0
+    encoder_seq: int = 0
     learned_pos: bool = False
+    max_position: int = 0
     frontend: str = "none"             # "none" | "audio_stub" | "vision_stub"
+    num_patches: int = 0
     # --- numerics ---
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
@@ -115,17 +125,21 @@ class ArchConfig:
     def cdtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
 
-    def attn_cfg(self, spec: LayerSpec) -> AttnCfg:
+    def attn_cfg(self, spec: LayerSpec, cross: bool = False) -> AttnCfg:
         return AttnCfg(
             d_model=self.d_model, n_heads=self.n_heads,
             n_kv_heads=self.n_kv_heads, head_dim=self.head_dim,
             bias=self.qkv_bias, qk_norm=self.qk_norm,
-            window=spec.window,
+            window=None if cross else spec.window,
             rope_theta=(None if self.learned_pos
                         else (spec.rope_theta or self.rope_theta)),
             logit_softcap=self.attn_softcap, scale=self.attn_scale,
-            matmul_dtype=self.attn_matmul,
+            cross=cross, matmul_dtype=self.attn_matmul,
         )
+
+
+# the encoder's layers: bidirectional attention and a dense FFN
+_ENC_SPEC = LayerSpec(kind="attn", ffn="dense")
 
 
 def layer_specs(cfg: ArchConfig) -> list[LayerSpec]:
@@ -133,33 +147,27 @@ def layer_specs(cfg: ArchConfig) -> list[LayerSpec]:
     return list(cfg.pattern) * cfg.repeats + list(cfg.tail)
 
 
-def _check_ported(cfg: ArchConfig) -> None:
-    missing = []
-    if cfg.n_experts or any(s.ffn == "moe" for s in layer_specs(cfg)):
-        missing.append("mixture-of-experts FFNs")
-    if cfg.encoder_layers or any(s.cross_attn for s in layer_specs(cfg)):
-        missing.append("the encoder and cross-attention")
-    if cfg.frontend != "none":
-        missing.append(f"the {cfg.frontend} frontend")
-    if cfg.learned_pos:
-        missing.append("learned positions")
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not ported yet")
-
-
 class LMParams(nn.Module):
     """The weights of one LM: ``embed``, ``layers`` (an ``nn.ModuleList`` of
-    :class:`ParamTree`, one per layer in order), ``final_norm`` and, for
-    untied embeddings, ``lm_head``."""
+    :class:`ParamTree`, one per layer in order), ``final_norm``, and where
+    the config has them ``lm_head`` (untied embeddings), ``pos_embed``
+    (learned positions), ``encoder`` (one :class:`ParamTree` per encoder
+    layer) and ``enc_norm``; absent ones are None."""
 
     def __init__(self, embed: torch.Tensor, layers: list[dict], final_norm: dict,
-                 lm_head: torch.Tensor | None = None):
+                 lm_head: torch.Tensor | None = None, *, pos_embed: torch.Tensor | None = None,
+                 encoder: list[dict] | None = None, enc_norm: dict | None = None):
         super().__init__()
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.layers = nn.ModuleList(ParamTree(p) for p in layers)
         self.final_norm = ParamTree(final_norm)
         self.lm_head = (nn.Parameter(lm_head, requires_grad=False)
                         if lm_head is not None else None)
+        self.pos_embed = (nn.Parameter(pos_embed, requires_grad=False)
+                          if pos_embed is not None else None)
+        self.encoder = (nn.ModuleList(ParamTree(p) for p in encoder)
+                        if encoder is not None else None)
+        self.enc_norm = ParamTree(enc_norm) if enc_norm is not None else None
 
 
 # ---------------------------------------------------------------------------
@@ -181,12 +189,31 @@ def _init_layer(init: Init, cfg: ArchConfig, spec: LayerSpec) -> dict:
         raise ValueError(f"unknown layer kind {spec.kind!r}")
     if cfg.post_norm:
         p["norm1b"] = init_norm(init, d, cfg.norm)
+    if spec.cross_attn:
+        p["normx"] = init_norm(init, d, cfg.norm)
+        p["xattn"] = init_attention(init, cfg.attn_cfg(spec, cross=True))
     if spec.ffn != "none":
         p["norm2"] = init_norm(init, d, cfg.norm)
-        p["ffn"] = init_ffn(init, d, cfg.d_ff, cfg.ffn_act)
+        if spec.ffn == "moe":
+            p["moe"] = init_moe(
+                init, d, cfg.n_experts, cfg.d_ff_expert, act=cfg.ffn_act,
+                dense_residual_ff=cfg.d_ff if cfg.moe_dense_residual else 0)
+        else:
+            p["ffn"] = init_ffn(init, d, cfg.d_ff, cfg.ffn_act)
         if cfg.post_norm:
             p["norm2b"] = init_norm(init, d, cfg.norm)
     return p
+
+
+def _init_enc_layer(init: Init, cfg: ArchConfig) -> dict:
+    """Whisper-style bidirectional encoder layer: MHA + GELU FFN."""
+    d = cfg.d_model
+    return {
+        "norm1": init_norm(init, d, cfg.norm),
+        "attn": init_attention(init, cfg.attn_cfg(_ENC_SPEC)),
+        "norm2": init_norm(init, d, cfg.norm),
+        "ffn": init_ffn(init, d, cfg.d_ff, cfg.ffn_act),
+    }
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> LMParams:
@@ -196,15 +223,24 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> LMParams:
     same weights on every device. PyTorch's draws differ from
     ``jax.random``'s: to run the JAX package's weights use
     :func:`params_from_reference`."""
-    _check_ported(cfg)
     dev = default_device(device)
-    init = Init(torch.Generator().manual_seed(seed), cfg.pdtype, dev)
+    return _draw_params(Init(torch.Generator().manual_seed(seed), cfg.pdtype, dev), cfg)
+
+
+def _draw_params(init: Init, cfg: ArchConfig) -> LMParams:
+    """Every weight of ``cfg`` from ``init``, in one fixed order."""
     # σ = d^-1/2 keeps TIED unembed logits O(1)
     embed = init.normal((cfg.vocab, cfg.d_model), stddev=cfg.d_model ** -0.5)
+    extra = {}
+    if cfg.learned_pos:
+        extra["pos_embed"] = init.normal((max(cfg.max_position, 1), cfg.d_model), stddev=0.02)
+    if cfg.encoder_layers:
+        extra["encoder"] = [_init_enc_layer(init, cfg) for _ in range(cfg.encoder_layers)]
+        extra["enc_norm"] = init_norm(init, cfg.d_model, cfg.norm)
     layers = [_init_layer(init, cfg, spec) for spec in layer_specs(cfg)]
     final_norm = init_norm(init, cfg.d_model, cfg.norm)
     lm_head = None if cfg.tie_embeddings else init.normal((cfg.d_model, cfg.vocab))
-    return LMParams(embed, layers, final_norm, lm_head)
+    return LMParams(embed, layers, final_norm, lm_head, **extra)
 
 
 def params_from_reference(cfg: ArchConfig, tree: dict, device=None) -> LMParams:
@@ -214,8 +250,8 @@ def params_from_reference(cfg: ArchConfig, tree: dict, device=None) -> LMParams:
 
     ``blocks/b{j}`` holds pattern position ``j`` stacked over the repeats:
     its leaf ``[i]`` becomes layer ``i·len(pattern) + j``; ``tail{j}``
-    follows the stacked layers."""
-    _check_ported(cfg)
+    follows the stacked layers. ``encoder`` is stacked over the encoder
+    layers; ``pos_embed`` and ``enc_norm`` are carried as they are."""
     dev = default_device(device)
 
     def tensors(node, index=None):
@@ -232,7 +268,14 @@ def params_from_reference(cfg: ArchConfig, tree: dict, device=None) -> LMParams:
               for i in range(cfg.repeats) for j in range(n_pat)]
     layers += [tensors(tree[f"tail{j}"]) for j in range(len(cfg.tail))]
     lm_head = None if cfg.tie_embeddings else tensors(tree["lm_head"])
-    return LMParams(tensors(tree["embed"]), layers, tensors(tree["final_norm"]), lm_head)
+    extra = {}
+    if "pos_embed" in tree:
+        extra["pos_embed"] = tensors(tree["pos_embed"])
+    if "encoder" in tree:
+        extra["encoder"] = [tensors(tree["encoder"], i) for i in range(cfg.encoder_layers)]
+        extra["enc_norm"] = tensors(tree["enc_norm"])
+    return LMParams(tensors(tree["embed"]), layers, tensors(tree["final_norm"]), lm_head,
+                    **extra)
 
 
 def _as_dict(node) -> dict:
@@ -252,15 +295,21 @@ def _stack(trees: list[dict]) -> dict:
 
 def params_to_reference(cfg: ArchConfig, params: LMParams) -> dict:
     """The inverse of :func:`params_from_reference`: the JAX package's tree
-    (``embed``, ``blocks/b{j}`` stacked over the repeats, ``tail{j}``,
+    (``embed``, ``pos_embed``, ``encoder`` stacked over the encoder layers,
+    ``enc_norm``, ``blocks/b{j}`` stacked over the repeats, ``tail{j}``,
     ``final_norm``, ``lm_head`` when untied) as nested dicts of tensors on
     the weights' device."""
     if isinstance(params, dict):
         return params
     layers = [_as_dict(p) for p in params.layers]
     n_pat, n_stacked = len(cfg.pattern), len(cfg.pattern) * cfg.repeats
-    tree = {"embed": params.embed.detach(),
-            "blocks": {f"b{j}": _stack(layers[j:n_stacked:n_pat]) for j in range(n_pat)}}
+    tree = {"embed": params.embed.detach()}
+    if params.pos_embed is not None:
+        tree["pos_embed"] = params.pos_embed.detach()
+    if params.encoder is not None:
+        tree["encoder"] = _stack([_as_dict(p) for p in params.encoder])
+        tree["enc_norm"] = _as_dict(params.enc_norm)
+    tree["blocks"] = {f"b{j}": _stack(layers[j:n_stacked:n_pat]) for j in range(n_pat)}
     for j in range(len(cfg.tail)):
         tree[f"tail{j}"] = layers[n_stacked + j]
     tree["final_norm"] = _as_dict(params.final_norm)
@@ -280,7 +329,8 @@ def _unbind(node, repeats: int) -> list:
 
 class _TreeView:
     """The JAX package's tree read as :class:`LMParams` reads: ``embed``,
-    ``layers`` in order, ``final_norm``, ``lm_head``."""
+    ``layers`` in order, ``final_norm``, ``lm_head``, ``pos_embed``,
+    ``encoder`` in order, ``enc_norm``."""
 
     def __init__(self, cfg: ArchConfig, tree: dict):
         self.embed = tree["embed"]
@@ -290,6 +340,10 @@ class _TreeView:
         self.layers += [tree[f"tail{j}"] for j in range(len(cfg.tail))]
         self.final_norm = tree["final_norm"]
         self.lm_head = tree.get("lm_head")
+        self.pos_embed = tree.get("pos_embed")
+        self.encoder = (_unbind(tree["encoder"], cfg.encoder_layers)
+                        if "encoder" in tree else None)
+        self.enc_norm = tree.get("enc_norm")
 
 
 def _view(cfg: ArchConfig, params):
@@ -318,7 +372,12 @@ def _norm(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
 def _ffn_block(cfg: ArchConfig, spec: LayerSpec, p, x: torch.Tensor) -> torch.Tensor:
     if spec.ffn == "none":
         return x
-    h = ffn_apply(p["ffn"], _norm(cfg, p["norm2"], x), cfg.ffn_act)
+    h = _norm(cfg, p["norm2"], x)
+    if spec.ffn == "moe":
+        h = moe_apply(p["moe"], h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                      act=cfg.ffn_act)
+    else:
+        h = ffn_apply(p["ffn"], h, cfg.ffn_act)
     if cfg.post_norm:
         h = _norm(cfg, p["norm2b"], h)
     return x + h
@@ -333,7 +392,7 @@ def _rwkv_layer(cfg: ArchConfig, p, x: torch.Tensor, st: dict | None, force):
 
 
 def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p, x: torch.Tensor,
-                 positions: torch.Tensor, force) -> torch.Tensor:
+                 positions: torch.Tensor, memory: torch.Tensor | None, force) -> torch.Tensor:
     if spec.kind == "rwkv":
         return _rwkv_layer(cfg, p, x, None, force)[0]
     h = _norm(cfg, p["norm1"], x)
@@ -343,11 +402,16 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p, x: torch.Tensor,
         h, _ = recurrent.rglru_block_apply(p["rec"], h, force=force)
     if cfg.post_norm:
         h = _norm(cfg, p["norm1b"], h)
-    return _ffn_block(cfg, spec, p, x + h)
+    x = x + h
+    if spec.cross_attn:
+        x = x + attn_train(p["xattn"], cfg.attn_cfg(spec, cross=True),
+                           _norm(cfg, p["normx"], x), positions, memory, force=force)
+    return _ffn_block(cfg, spec, p, x)
 
 
 def _prefill_layer(cfg: ArchConfig, spec: LayerSpec, p, st: dict, x: torch.Tensor,
-                   positions: torch.Tensor, force) -> torch.Tensor:
+                   positions: torch.Tensor, memory: torch.Tensor | None,
+                   force) -> torch.Tensor:
     """One layer over the prompt; fills ``st`` in place."""
     if spec.kind == "rwkv":
         x, st["rwkv"] = _rwkv_layer(cfg, p, x, None, force)
@@ -360,7 +424,13 @@ def _prefill_layer(cfg: ArchConfig, spec: LayerSpec, p, st: dict, x: torch.Tenso
         h, st["rec"] = recurrent.rglru_block_apply(p["rec"], h, None, force=force)
     if cfg.post_norm:
         h = _norm(cfg, p["norm1b"], h)
-    return _ffn_block(cfg, spec, p, x + h)
+    x = x + h
+    if spec.cross_attn:
+        h, st["xkv"] = attn_prefill(p["xattn"], cfg.attn_cfg(spec, cross=True),
+                                    _norm(cfg, p["normx"], x), positions, st["xkv"],
+                                    memory, force=force)
+        x = x + h
+    return _ffn_block(cfg, spec, p, x)
 
 
 def _decode_layer(cfg: ArchConfig, spec: LayerSpec, p, st: dict, x: torch.Tensor,
@@ -376,7 +446,12 @@ def _decode_layer(cfg: ArchConfig, spec: LayerSpec, p, st: dict, x: torch.Tensor
         h, st["rec"] = recurrent.rglru_block_apply(p["rec"], h, st["rec"], force=force)
     if cfg.post_norm:
         h = _norm(cfg, p["norm1b"], h)
-    return _ffn_block(cfg, spec, p, x + h)
+    x = x + h
+    if spec.cross_attn:
+        h, _ = attn_decode(p["xattn"], cfg.attn_cfg(spec, cross=True),
+                           _norm(cfg, p["normx"], x), pos, st["xkv"])
+        x = x + h
+    return _ffn_block(cfg, spec, p, x)
 
 
 # ---------------------------------------------------------------------------
@@ -392,6 +467,42 @@ def _embed(cfg: ArchConfig, params: LMParams, tokens: torch.Tensor) -> torch.Ten
 
 def _tokens(params: LMParams, tokens) -> torch.Tensor:
     return torch.as_tensor(tokens, device=params.embed.device).long()
+
+
+def _embed_inputs(cfg: ArchConfig, params: LMParams, batch: dict) -> torch.Tensor:
+    """Token embeddings (scaled where the config says), the vision stub's
+    patch embeddings over the leading positions, then learned positions."""
+    x = _embed(cfg, params, _tokens(params, batch["tokens"]))
+    if cfg.frontend == "vision_stub" and "patch_embeds" in batch:
+        patches = torch.as_tensor(batch["patch_embeds"], device=x.device).to(cfg.cdtype)
+        x = torch.cat([patches, x[:, patches.shape[1]:]], dim=1)
+    if cfg.learned_pos:
+        x = x + params.pos_embed[:x.shape[1]][None].to(x.dtype)
+    return x
+
+
+def _sinusoid(t: int, d: int, device) -> torch.Tensor:
+    pos = torch.arange(t, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(10000.0, 2 * dim / d)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
+def _run_encoder(cfg: ArchConfig, params: LMParams, enc_embeds, force) -> torch.Tensor:
+    """Whisper encoder stack over the stub's frame embeddings (B, Te, d)."""
+    x = torch.as_tensor(enc_embeds, device=params.embed.device).to(cfg.cdtype)
+    x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(x.dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for lp in params.encoder:
+        x = x + attn_train(lp["attn"], cfg.attn_cfg(_ENC_SPEC), _norm(cfg, lp["norm1"], x),
+                           positions, causal=False, force=force)
+        x = x + ffn_apply(lp["ffn"], _norm(cfg, lp["norm2"], x), cfg.ffn_act)
+    return _norm(cfg, params.enc_norm, x)
+
+
+def _memory(cfg: ArchConfig, params: LMParams, batch: dict, force) -> torch.Tensor | None:
+    return (_run_encoder(cfg, params, batch["enc_embeds"], force) if cfg.encoder_layers
+            else None)
 
 
 def _unembed(cfg: ArchConfig, params) -> torch.Tensor:
@@ -413,16 +524,17 @@ def _logits(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward_hidden(cfg: ArchConfig, params, batch: dict, *, force=None) -> torch.Tensor:
-    """Embeddings → stack → final norm. batch: ``{"tokens": (B, S)}``.
+    """Embeddings → stack → final norm. batch: ``{"tokens": (B, S)}`` and
+    the stub inputs the config reads (``enc_embeds``, ``patch_embeds``).
     Records autograd's graph when grad mode is on and a weight requires
     grad (the training forward); the kernels' gradients go through
     ``ops``' plain versions."""
-    _check_ported(cfg)
     params = _view(cfg, params)
-    x = _embed(cfg, params, _tokens(params, batch["tokens"]))
+    x = _embed_inputs(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
+    memory = _memory(cfg, params, batch, force)
     for spec, p in zip(layer_specs(cfg), params.layers):
-        x = _apply_layer(cfg, spec, p, x, positions, force)
+        x = _apply_layer(cfg, spec, p, x, positions, memory, force)
     return _norm(cfg, params.final_norm, x)
 
 
@@ -468,8 +580,11 @@ def train_loss(cfg: ArchConfig, params, batch: dict, *, force=None) -> torch.Ten
 def _init_layer_state(cfg: ArchConfig, spec: LayerSpec, batch: int, max_len: int,
                       cache_dtype, device) -> dict:
     if spec.kind == "attn":
-        return {"kv": init_kv_cache(cfg.attn_cfg(spec), batch, max_len, cache_dtype,
-                                    device)}
+        st = {"kv": init_kv_cache(cfg.attn_cfg(spec), batch, max_len, cache_dtype, device)}
+        if spec.cross_attn:
+            st["xkv"] = init_kv_cache(cfg.attn_cfg(spec), batch, max(cfg.encoder_seq, 1),
+                                      cache_dtype, device)
+        return st
     if spec.kind == "rglru":
         return {"rec": recurrent.init_rglru_state(cfg.lru_width or cfg.d_model, batch,
                                                   cfg.conv_width, device=device)}
@@ -480,9 +595,10 @@ def _init_layer_state(cfg: ArchConfig, spec: LayerSpec, batch: int, max_len: int
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       cache_dtype=torch.bfloat16, device=None) -> list[dict]:
     """One state dict per layer, in layer order: ``{"kv": {"k", "v"}}``
-    caches of (batch, n_kv_heads, max_len, head_dim) for attention,
-    ``{"rec": {"conv", "h"}}`` for RG-LRU, ``{"rwkv": {...}}`` for RWKV."""
-    _check_ported(cfg)
+    caches of (batch, n_kv_heads, max_len, head_dim) for attention (and
+    ``"xkv"``, the encoder's K/V of ``encoder_seq`` positions, for
+    cross-attention), ``{"rec": {"conv", "h"}}`` for RG-LRU, ``{"rwkv":
+    {...}}`` for RWKV."""
     dev = default_device(device)
     return [_init_layer_state(cfg, spec, batch, max_len, cache_dtype, dev)
             for spec in layer_specs(cfg)]
@@ -492,14 +608,14 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
 def prefill(cfg: ArchConfig, params: LMParams, state: list[dict], batch: dict, *,
             force=None) -> tuple[torch.Tensor, list[dict]]:
     """Prompt pass that fills ``state`` in place. batch: ``{"tokens": (B,
-    S)}``. Returns (last-position logits (B, vocab) float32, state ready for
-    decode at pos = S)."""
-    _check_ported(cfg)
+    S)}`` and the stub inputs the config reads. Returns (last-position
+    logits (B, vocab) float32, state ready for decode at pos = S)."""
     params = _view(cfg, params)
-    x = _embed(cfg, params, _tokens(params, batch["tokens"]))
+    x = _embed_inputs(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
+    memory = _memory(cfg, params, batch, force)
     for spec, p, st in zip(layer_specs(cfg), params.layers, state):
-        x = _prefill_layer(cfg, spec, p, st, x, positions, force)
+        x = _prefill_layer(cfg, spec, p, st, x, positions, memory, force)
     x = _norm(cfg, params.final_norm, x)
     return _logits(cfg, params, x[:, -1]), state
 
@@ -507,13 +623,16 @@ def prefill(cfg: ArchConfig, params: LMParams, state: list[dict], batch: dict, *
 @torch.no_grad()
 def decode_step(cfg: ArchConfig, params: LMParams, state: list[dict], tokens,
                 pos: int, *, force=None) -> tuple[torch.Tensor, list[dict]]:
-    """One decode step. tokens: (B, 1); pos: index of the new token. Updates
-    ``state`` in place; returns (logits (B, vocab) float32, state)."""
+    """One decode step. tokens: (B, 1); pos: index of the new token (learned
+    positions are clamped at the table's last row). Updates ``state`` in
+    place; returns (logits (B, vocab) float32, state)."""
     params = _view(cfg, params)
     x = _embed(cfg, params, _tokens(params, tokens))
     pos = int(pos)
+    if cfg.learned_pos:
+        row = min(pos, params.pos_embed.shape[0] - 1)
+        x = x + params.pos_embed[row][None, None].to(x.dtype)
     for spec, p, st in zip(layer_specs(cfg), params.layers, state):
         x = _decode_layer(cfg, spec, p, st, x, pos, force)
     x = _norm(cfg, params.final_norm, x)
     return _logits(cfg, params, x[:, 0]), state
-

@@ -68,12 +68,23 @@ class ServeEngine:
         self.last_stats = ServeStats()
 
     def _make_batch(self, requests: list[Request]) -> tuple[dict, int]:
-        """Right-align prompts at a common length (left pad with 0)."""
+        """Right-align prompts at a common length (left pad with 0). The
+        stub frontends get zero inputs, as in the reference: the audio
+        stub (B, encoder_seq, d) frames, the vision stub (B, min(num_patches,
+        plen), d) patches."""
         plen = max(len(r.prompt) for r in requests)
         toks = np.zeros((self.batch_size, plen), np.int64)
         for i, r in enumerate(requests):
             toks[i, plen - len(r.prompt):] = r.prompt
-        return {"tokens": torch.from_numpy(toks).to(self.device)}, plen
+        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        cfg = self.cfg
+        if cfg.frontend == "audio_stub":
+            batch["enc_embeds"] = torch.zeros((self.batch_size, cfg.encoder_seq, cfg.d_model),
+                                              device=self.device)
+        if cfg.frontend == "vision_stub":
+            batch["patch_embeds"] = torch.zeros(
+                (self.batch_size, min(cfg.num_patches, plen), cfg.d_model), device=self.device)
+        return batch, plen
 
     @torch.no_grad()
     def serve(self, requests: list[Request]) -> list[Request]:

@@ -197,6 +197,11 @@ ATTN_GRID = [  # b, hq, hkv, tq, tk, d, causal, window, softcap
     (2, 4, 2, 1, 64, 64, True, None, None),          # decode-style Tq=1
     (1, 2, 1, 40, 200, 16, True, 50, None),          # chunked prefill offset
     (1, 2, 2, 200, 40, 64, True, None, None),        # Tq > Tk: rows see no key
+    (4, 16, 16, 1500, 1500, 64, False, None, None),  # whisper-medium's encoder
+    (4, 16, 16, 384, 1500, 64, False, None, None),   # its cross-attention, Tq < Tk
+    (2, 4, 4, 32, 24, 16, False, None, None),        # cross-attention, Tq > Tk
+    (1, 14, 2, 256, 256, 64, True, None, None),      # InternVL2-1B, GQA group 7
+    (1, 64, 4, 512, 512, 128, True, None, None),     # Qwen3-MoE, GQA group 16
 ]
 
 
@@ -993,3 +998,58 @@ def test_cuda_train_step_through_the_kernels(cuda):
         for key in ("loss", "grad_norm"):
             assert abs(float(m[key]) - float(m_ref[key])) <= 1e-2 * abs(float(m_ref[key])), \
                 (arch, key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-1b", "qwen3-moe-235b-a22b",
+                                  "arctic-480b"])
+def test_cuda_zoo_smoke_prefill_through_the_kernel(cuda, arch):
+    """The smoke configs in float32 on the card, with seeded stub inputs:
+    the prefill through the flash kernel within 2e-3 of the plain path
+    (tests/test_torch_zoo_configs.py's gate against the JAX package),
+    launching it once per self-attention, cross-attention and encoder
+    layer; a rerun gives the same bits (the MoE's combine has no atomics)."""
+    import dataclasses
+
+    from repro_torch import configs, models
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    cfg = dataclasses.replace(configs.get_smoke_config(arch), compute_dtype="float32")
+    params = models.init_params(cfg, seed=3, device=cuda)
+    rng = np.random.default_rng(4)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40))).to(cuda)}
+    if cfg.frontend == "audio_stub":
+        batch["enc_embeds"] = _lm(6, (2, cfg.encoder_seq, cfg.d_model), device=cuda)[0]
+    if cfg.frontend == "vision_stub":
+        batch["patch_embeds"] = _lm(6, (2, cfg.num_patches, cfg.d_model), device=cuda)[0]
+
+    def run(force=None):
+        state = models.init_decode_state(cfg, 2, 48, torch.float32, cuda)
+        return models.prefill(cfg, params, state, batch, force=force)[0]
+
+    reset_launch_counts()
+    got = run()
+    specs = models.layer_specs(cfg)
+    want_launches = (sum(s.kind == "attn" for s in specs) + sum(s.cross_attn for s in specs)
+                     + cfg.encoder_layers)
+    assert launch_counts()["flash_attention"] == want_launches
+    torch.testing.assert_close(got, run("ref"), atol=2e-3, rtol=2e-3)
+    assert torch.equal(got, run())
+
+
+@pytest.mark.cuda
+def test_cuda_moe_apply_matches_the_cpu(cuda):
+    """``moe_apply`` on the card at a capacity factor that drops slots, with
+    Arctic's dense residual, in float32: within 1e-5 of the CPU's (the
+    same slots dropped), bit-identical on a rerun."""
+    from repro_torch.models import init_moe, moe_apply
+    from repro_torch.models.layers import Init
+
+    p = init_moe(Init(torch.Generator().manual_seed(2)), 32, 8, 48, dense_residual_ff=64)
+    x = _lm(7, (3, 50, 32), device="cpu")[0]
+    want = moe_apply(p, x, top_k=2, capacity_factor=0.5)
+    pc = {k: ({kk: vv.to(cuda) for kk, vv in v.items()} if isinstance(v, dict) else v.to(cuda))
+          for k, v in p.items()}
+    got = moe_apply(pc, x.to(cuda), top_k=2, capacity_factor=0.5)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+    assert torch.equal(got, moe_apply(pc, x.to(cuda), top_k=2, capacity_factor=0.5))
