@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases 1,11,12 # the sharded search and the service only
     python3 chip_smoke.py --phases 1,6,13,14 # the dense LMs served and TinyLlama trained
     python3 chip_smoke.py --phases 1,15   # whisper, InternVL and the MoEs served
+    python3 chip_smoke.py --phases 1,16   # the device-mesh layer
 
 It imports only the port (``src/repro_torch``), never JAX or the JAX
 package, and exits non-zero without printing a result when CUDA is absent
@@ -88,7 +89,22 @@ or any phase fails. Phases:
    per-token reference, the share of slots dropped), Arctic-480B's smoke
    config served, and one full-width Arctic layer (13.61B bfloat16
    parameters drawn on the card) on 4 x 1024 tokens, its MoE output
-   against the per-token reference.
+   against the per-token reference;
+16. the device-mesh layer: the JAX package's small dry-run cells traced
+   at the 32 x 8 production mesh (256 ranks of a ``fake`` process group,
+   under ``FakeTensorMode``) and TinyLlama's train cell at 2 x 32 x 8 (512),
+   each ``CellReport.summary()`` printed; phase 14's step traced on a 1 x 1
+   mesh against the real step (FLOPs and argument bytes within 1 %); on a
+   1 x 1 NCCL mesh on cuda:0, TinyLlama-1.1B trained 3 steps through
+   ``Trainer(mesh=..., fsdp=True, zero1=True)`` (losses within 1e-5 of the
+   one-device Trainer's, the same flash launches) and 3 with
+   ``dp_mode="shard_map_int8"``, and served phase 13's wave (the same
+   greedy tokens as the one-device engine); and ``compat.sharded_call``
+   over two gloo ranks sharing cuda:0, a depth-6 GBDT tree on 800,000 x 28
+   rows: its split decisions bit-equal to the stacked lowering's, its leaf
+   sums within HIST_TOL (the histogram kernel associates a cell's rows by
+   row chunks, which differ between one block and two side by side), the
+   histogram kernel and the split scan launched in each rank.
 
 Phase 2 also holds the sharded level (the shards' partial histograms in
 one histogram launch, summed in shard order, scanned by ``split_scan``)
@@ -2344,9 +2360,288 @@ def phase_zoo_serve(torch, out: dict) -> None:
     print(f"  arctic-480b took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The device-mesh layer (phase 16)
+# ---------------------------------------------------------------------------
+
+# phase 16: the steps TinyLlama trains on the 1 x 1 mesh in each DP mode,
+# and how far the mesh's losses may lie from the one-device Trainer's (the
+# same ops on the same bits: a 1 x 1 mesh moves nothing, so only an op that
+# DTensor runs in another form could move a loss)
+MESH_STEPS, MESH_LOSS_RTOL = 3, 1e-5
+# the reference's small dry-run cells (tests/test_dryrun_small.py), traced
+# at the production mesh in the scan form, and the multi-pod cell
+MESH_DRYRUN_CELLS = (("qwen2_1_5b", "train_4k"), ("rwkv6_7b", "decode_32k"),
+                     ("qwen3_moe_235b", "train_4k"), ("whisper_medium", "prefill_32k"))
+MESH_MULTIPOD_CELL = ("tinyllama_1_1b", "train_4k")
+# the yardstick: the dry-run of phase 14's step on a 1 x 1 mesh against the
+# real step on the card, FLOPs and argument bytes
+YARDSTICK_RTOL = 0.01
+# sharded_call over two gloo ranks that share cuda:0: phase 2's sharded
+# level at R rows x F features, B bins, a tree of depth D (N = 2^D leaves)
+MESH_SHARDS, MESH_ROWS, MESH_FEATURES, MESH_BINS, MESH_DEPTH = 2, 800_000, 28, 64, 6
+
+_SHARDED_RANK = r"""
+import json, sys, torch, numpy as np, torch.distributed as dist
+from repro_torch import compat
+from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.launch.mesh import compat_make_mesh
+from repro_torch.tabular.gbdt import build_tree
+S, R, F, B, D = {S}, {R}, {F}, {B}, {D}
+mesh = compat_make_mesh((S,), ("shards",), device="cpu")      # gloo
+gen = torch.Generator(device="cuda").manual_seed(16)
+bins = torch.randint(0, B, (S, R // S, F), generator=gen, device="cuda", dtype=torch.int32)
+g = torch.randn((S, R // S), generator=gen, device="cuda")
+h = torch.rand((S, R // S), generator=gen, device="cuda") + 0.1
+valid = torch.ones((S, R // S), dtype=torch.bool, device="cuda")
+kw = dict(n_bins=B, max_depth=D, lam=1.0, gamma=0.0, min_child_weight=1.0)
+def per_shard(axis, bins, g, h, valid):
+    return build_tree(bins, g, h, axis_name=axis, row_valid=valid, **kw)
+reset_launch_counts()
+t0 = __import__("time").perf_counter()
+spmd = compat.sharded_call(per_shard, n_shards=S, mesh=mesh)(bins, g, h, valid)
+torch.cuda.synchronize()
+secs = __import__("time").perf_counter() - t0
+counts = launch_counts()
+stacked = compat.sharded_call(per_shard, n_shards=S)(bins, g, h, valid)
+# the decisions (feature, split bin) bit-equal; the leaf sums float sums
+# that the histogram kernel associates by its row chunks, which differ
+# between one block and S blocks side by side
+same = all(torch.equal(a, b) for a, b in zip(spmd[:2], stacked[:2]))
+leaf = max(float(((a - b).abs() / (b.abs() + 1e-3)).max()) for a, b in zip(spmd[2:], stacked[2:]))
+print("RANK " + json.dumps(dict(rank=dist.get_rank(), same=same, leaf_rel=leaf, secs=secs,
+      histogram=counts["histogram"], split_scan=counts["split_scan"],
+      level_split=counts["level_split"])), flush=True)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def _mesh_dryrun(torch) -> dict:
+    """Phase 16's dry-runs, on fake process groups: the reference's small
+    cells at 32 x 8 and TinyLlama's train cell at 2 x 32 x 8 (scan form),
+    and the yardstick cell, phase 14's step traced whole on a 1 x 1 mesh."""
+    from repro_torch import configs
+    from repro_torch.launch.dryrun import fake_process_group, run_cell
+    from repro_torch.launch.mesh import compat_make_mesh, make_production_mesh
+
+    reports = []
+    for multi_pod, cells in ((False, MESH_DRYRUN_CELLS), (True, (MESH_MULTIPOD_CELL,))):
+        fake_process_group(512 if multi_pod else 256)
+        mesh = make_production_mesh(multi_pod=multi_pod, device="cuda")
+        for arch, shape in cells:
+            rep, secs = run_cell(arch, shape, mesh=mesh, scan=True, verbose=False)
+            print(f"  {rep.summary()} [trace {secs:.1f} s; args/rank "
+                  f"{rep.memory_stats['argument_size_in_bytes'] / 1e9:.2f} GB, collective "
+                  f"bytes/rank {rep.collective_bytes['total'] / 1e9:.3f} GB]", flush=True)
+            _check(rep.flops_per_device > 0 and rep.collective_bytes["total"] > 0,
+                   f"{arch} x {shape}: no FLOPs or no collectives")
+            reports.append(rep)
+    fake_process_group(1)
+    mesh = compat_make_mesh((1, 1), ("data", "model"), device="cuda")
+    cell = configs.ShapeCell("train_phase14", TRAIN_SEQ, TRAIN_BATCH, "train")
+    yard, secs = run_cell(TRAIN_ARCH, cell, mesh=mesh, verbose=False, overrides=dict(
+        fsdp=True))
+    print(f"  yardstick {yard.summary()} [trace {secs:.1f} s]", flush=True)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return {"reports": reports, "yardstick": yard}
+
+
+def _unique_bytes(torch, tree) -> int:
+    """Bytes of the distinct storages under a tree of (D)tensors."""
+    from torch.distributed.tensor import DTensor
+
+    seen, total = set(), 0
+
+    def walk(t):
+        nonlocal total
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, torch.Tensor):
+            t = t.to_local() if isinstance(t, DTensor) else t
+            st = t.untyped_storage()
+            if st.data_ptr() not in seen:
+                seen.add(st.data_ptr())
+                total += st.nbytes()
+    walk(tree)
+    return total
+
+
+def phase_mesh(torch, out: dict) -> None:
+    import gc
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import make_lm_stream
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import compat_make_mesh, run_local_ranks
+    from repro_torch.models import transformer as tm
+    from repro_torch.roofline.analysis import RankFlopCounter
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.train import Trainer, build_train_step, init_train_state, make_optimizer
+    from repro_torch.train.train_step import distribute_tree
+
+    t0 = time.perf_counter()
+    dry = _mesh_dryrun(torch)
+    dry_s = time.perf_counter() - t0
+
+    # -- 1. a 1 x 1 NCCL mesh on cuda:0, training ---------------------------
+    t0 = time.perf_counter()
+    mesh = compat_make_mesh((1, 1), ("data", "model"), device="cuda")
+    _check(dist.get_backend() == "nccl", f"the 1 x 1 mesh runs {dist.get_backend()}")
+    cfg = configs.get_config(TRAIN_ARCH)
+    opt = make_optimizer("adamw", lr=TRAIN_LR)
+    state0 = init_train_state(cfg, opt, seed=0, device="cuda")
+
+    def run(mesh_, yardstick=None, **kw):
+        """MESH_STEPS steps from state0; the run's losses, its flash
+        launches and its warm seconds a step; ``yardstick(trainer)`` runs
+        before the trainer is dropped."""
+        stream = make_lm_stream(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab, seed=0, device="cuda",
+                                mesh=mesh_)
+        tr = Trainer(cfg, opt, stream, device="cuda", mesh=mesh_, **kw)
+        tr.state = state0 if mesh_ is None else {
+            "step": 0,
+            "params": distribute_tree(state0["params"], mesh_, tr.state_specs["params"]),
+            "opt_state": distribute_tree(state0["opt_state"], mesh_,
+                                         tr.state_specs["opt_state"])}
+        reset_launch_counts()
+        m = tr.run(MESH_STEPS)
+        n_flash = launch_counts()["flash_attention"]
+        stream.close()
+        extra = yardstick(tr) if yardstick is not None else None
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        return ([h["loss"] for h in m.history], n_flash,
+                float(np.mean([h["seconds"] for h in m.history[1:]])), extra)
+
+    def yardstick(tr):
+        """The real step's FLOPs (the plain path, as the trace runs it) and
+        the bytes its arguments hold."""
+        stream = make_lm_stream(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab, seed=0, mesh=mesh)
+        batch = stream.get(0)
+        stream.close()
+        step = build_train_step(cfg, opt, mesh=mesh, force="ref", state_specs=tr.state_specs)
+        with RankFlopCounter() as fc:
+            step(tr.state, batch)
+        return float(fc.get_total_flops()), _unique_bytes(
+            torch, {"params": tr.state["params"], "opt_state": tr.state["opt_state"],
+                    "batch": batch})
+
+    want, flash_local, local_s, _ = run(None)
+    got, flash_mesh, step_s, (real_flops, real_args) = run(mesh, yardstick, fsdp=True,
+                                                             zero1=True)
+    got8, flash_int8, _, _ = run(mesh, dp_mode="shard_map_int8")
+    del state0
+    worst = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    print(f"  {cfg.name} on a 1 x 1 NCCL mesh, batch {TRAIN_BATCH} x {TRAIN_SEQ}: losses "
+          f"one device " + ", ".join(f"{x:.6f}" for x in want) + "; mesh gspmd (FSDP, "
+          "ZeRO-1) " + ", ".join(f"{x:.6f}" for x in got) + f" (worst rel {worst:.3g}, tol "
+          f"{MESH_LOSS_RTOL:g}); shard_map_int8 " + ", ".join(f"{x:.6f}" for x in got8)
+          + f"; flash launches {flash_local} / {flash_mesh} / {flash_int8}", flush=True)
+    _check(len(got) == MESH_STEPS and worst <= MESH_LOSS_RTOL,
+           "the mesh Trainer's losses are off the one-device Trainer's")
+    _check(all(np.isfinite(got8)) and abs(got8[0] - got[0]) <= MESH_LOSS_RTOL * abs(got[0]),
+           f"shard_map_int8 losses {got8}")
+    _check(flash_mesh == flash_local == MESH_STEPS * cfg.n_layers and flash_int8 == flash_mesh,
+           f"flash launches {flash_local} / {flash_mesh} / {flash_int8}")
+    _add_lm_launches(out, {"flash_attention": flash_mesh + flash_int8})
+
+    # the yardstick: the real step's FLOPs and argument bytes against the
+    # dry-run's, the roofline step time beside the measured one
+    yard = dry["yardstick"]
+    yard_args = yard.memory_stats["argument_size_in_bytes"]
+    rel_f = abs(yard.flops_per_device - real_flops) / real_flops
+    rel_a = abs(yard_args - real_args) / real_args
+    print(f"  yardstick: FLOPs/rank dry-run {yard.flops_per_device:.6g} vs real step "
+          f"{real_flops:.6g} (rel {rel_f:.3g}, tol {YARDSTICK_RTOL:g}); argument bytes "
+          f"{yard_args:.6g} vs allocated {real_args:.6g} (rel {rel_a:.3g}); roofline step "
+          f"{yard.step_time_s:.4f} s ({yard.dominant}; compute {yard.compute_s:.4f}, memory "
+          f"{yard.memory_s:.4f}, collective {yard.collective_s:.4f}) vs measured "
+          f"{step_s:.4f} s on the mesh ({local_s:.4f} s one device): roofline share "
+          f"{yard.step_time_s / step_s:.3f}", flush=True)
+    _check(rel_f <= YARDSTICK_RTOL, "the dry-run's FLOPs are off the real step's")
+    _check(rel_a <= YARDSTICK_RTOL, "the dry-run's argument bytes are off the real state's")
+    train_s = time.perf_counter() - t0
+
+    # -- 2. the 1 x 1 mesh serving TinyLlama's phase-13 wave ----------------
+    t0 = time.perf_counter()
+    prompts_len = dict((a, p) for a, p, _ in DENSE_SERVE)[TRAIN_ARCH]
+    scfg = _cut_depth(cfg, SERVE_DEPTH.get(TRAIN_ARCH))
+    params = tm._draw_params(_card_init(torch, scfg.pdtype, 0), scfg)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, scfg.vocab, size=n).astype(np.int32) for n in prompts_len]
+    max_len = max(prompts_len) + LM_NEW_TOKENS
+    tokens, flash = [], []
+    for mesh_ in (None, mesh):
+        engine = ServeEngine(scfg, params, batch_size=4, max_len=max_len, mesh=mesh_)
+        reset_launch_counts()
+        done = engine.serve([Request(i, p, max_new_tokens=LM_NEW_TOKENS)
+                             for i, p in enumerate(prompts)])
+        flash.append(launch_counts()["flash_attention"])
+        tokens.append([r.output for r in done])
+        del engine
+    print(f"  served {scfg.name} ({scfg.n_layers} layers) on the 1 x 1 mesh: greedy tokens "
+          f"{'equal' if tokens[0] == tokens[1] else 'DIFFER'} to the one-device engine's "
+          f"({sum(map(len, tokens[1]))} tokens); flash launches {flash[0]} / {flash[1]}",
+          flush=True)
+    _check(tokens[0] == tokens[1], "the mesh engine's tokens differ from the one-device's")
+    _check(flash[1] == flash[0] == scfg.n_layers, f"serve flash launches {flash}")
+    _add_lm_launches(out, {"flash_attention": flash[1]})
+    del params
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_s = time.perf_counter() - t0
+
+    # -- 3. sharded_call over two gloo ranks sharing cuda:0 -----------------
+    t0 = time.perf_counter()
+    code = _SHARDED_RANK.replace("{S}", str(MESH_SHARDS)).replace("{R}", str(MESH_ROWS)) \
+        .replace("{F}", str(MESH_FEATURES)).replace("{B}", str(MESH_BINS)) \
+        .replace("{D}", str(MESH_DEPTH))
+    src = str(Path(__file__).resolve().parent / "src")
+    texts = run_local_ranks(code, MESH_SHARDS, timeout=120,
+                            env={"PYTHONPATH": src + os.pathsep + os.environ.get("PYTHONPATH", "")})
+    ranks = [json.loads(line[5:]) for t in texts for line in t.splitlines()
+             if line.startswith("RANK ")]
+    _check(len(ranks) == MESH_SHARDS, f"{len(ranks)} ranks reported")
+    for r in ranks:
+        _check(r["same"], f"rank {r['rank']}: the mesh lowering's split decisions differ "
+                          "from the stacked lowering's")
+        _check(r["leaf_rel"] <= HIST_TOL["rtol"], f"rank {r['rank']}: leaf sums off the "
+                                                  f"stacked lowering's by {r['leaf_rel']:.3g}")
+        _check(r["histogram"] > 0 and r["split_scan"] > 0,
+               f"rank {r['rank']} launched histogram {r['histogram']}, split_scan "
+               f"{r['split_scan']}")
+    print(f"  sharded_call over {MESH_SHARDS} gloo ranks sharing cuda:0 ({MESH_ROWS:,} x "
+          f"{MESH_FEATURES}, B={MESH_BINS}, depth {MESH_DEPTH}): the split decisions "
+          "bit-equal to the stacked lowering's in every rank, leaf sums within "
+          + ", ".join(f"{r['leaf_rel']:.3g}" for r in ranks) + " (tol "
+          f"{HIST_TOL['rtol']:g}); launches per rank " + "; ".join(
+              f"rank {r['rank']}: histogram {r['histogram']}, split_scan {r['split_scan']}, "
+              f"level_split {r['level_split']} ({r['secs']:.2f} s)" for r in ranks), flush=True)
+    _add_launches(out, {"histogram": sum(r["histogram"] for r in ranks),
+                        "split_scan": sum(r["split_scan"] for r in ranks)})
+    sharded_s = time.perf_counter() - t0
+    print(f"  phase 16 parts: dry-run {dry_s:.1f} s, training {train_s:.1f} s, serving "
+          f"{serve_s:.1f} s, sharded_call {sharded_s:.1f} s", flush=True)
+    out["mesh"] = dict(losses_local=want, losses_mesh=got, losses_int8=got8,
+                       step_s=step_s, local_step_s=local_s,
+                       yardstick=dict(flops=yard.flops_per_device, real_flops=real_flops,
+                                      args=yard_args, real_args=real_args,
+                                      roofline_s=yard.step_time_s, dominant=yard.dominant),
+                       dryrun=[r.summary() for r in dry["reports"]])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
     import torch
 
@@ -2389,7 +2684,9 @@ def main() -> int:
             (13, "the four dense LMs served", phase_dense_serve),
             (14, "TinyLlama-1.1B trained and resumed", phase_train),
             (15, "the rest of the zoo served: whisper, InternVL, Qwen3-MoE, Arctic",
-             phase_zoo_serve)):
+             phase_zoo_serve),
+            (16, "the device-mesh layer: training and serving on a mesh, sharded_call over "
+             "ranks, the pod dry-run", phase_mesh)):
         if n not in phases:
             continue
         print(f"[{n}] {title}", flush=True)

@@ -8,10 +8,14 @@ transformers (Qwen2-1.5B, TinyLlama-1.1B, Gemma-2B, Gemma3-12B), the
 mixture-of-experts (Qwen3-MoE-235B, Arctic-480B), whisper-medium's
 encoder-decoder and InternVL2-1B's LM behind its vision stub (flash
 attention), RecurrentGemma-9B (flash attention and RG-LRU) and RWKV6-7B
-(RWKV-6). An unknown id raises KeyError.
+(RWKV-6). An unknown id raises KeyError. ``SHAPES`` defines the four
+input-shape cells and ``live_cells()`` enumerates the 34 (arch × shape)
+combinations that run (the JAX package's; long_500k only for the archs
+whose attention is not fully global, DESIGN.md §4).
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 ARCH_IDS = (
@@ -37,6 +41,35 @@ _ALIASES.update({
     "arctic-480b": "arctic_480b",
     "internvl2-1b": "internvl2_1b",
 })
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str               # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+# Archs whose attention is fully quadratic-global skip long_500k (DESIGN §4).
+LONG_CONTEXT_ARCHS = {"gemma3_12b", "rwkv6_7b", "recurrentgemma_9b"}
+
+
+def live_cells() -> list[tuple[str, str]]:
+    cells = []
+    for arch in ARCH_IDS:
+        for shape in SHAPES:
+            if shape == "long_500k" and arch not in LONG_CONTEXT_ARCHS:
+                continue
+            cells.append((arch, shape))
+    return cells
 
 
 def resolve(arch_id: str) -> str:

@@ -1,8 +1,12 @@
-"""Explicit collectives over a :class:`~repro_torch.compat.ShardAxis`:
-int8-compressed mean-reduce with error feedback, and the plain mean-reduce.
+"""Explicit collectives over a shard axis: int8-compressed mean-reduce with
+error feedback, and the plain mean-reduce.
 
-Per-shard values are stacked on a leading axis of the shard count; the
-sums go through the axis's ``psum``, which adds shards in shard order.
+The axis is a :class:`~repro_torch.compat.ShardAxis` (per-shard values
+stacked on a leading axis of the shard count, one process) or a
+:class:`~repro_torch.compat.MeshAxis` (one value per rank of a mesh axis's
+process group: a data-parallel gradient, or a DTensor's local block of a
+tensor-parallel one). The sums go through the axis's ``psum``, which adds
+shards in shard order on either.
 
     q = round(g / scale) ∈ int8,  scale = max|g| / 127   (max over shards)
     Σ_shards q  on int32 (no overflow until 2^23 shards)
@@ -18,7 +22,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.compat import ShardAxis
+from repro_torch.compat import MeshAxis, ShardAxis
 
 __all__ = ["quantize_int8", "dequantize_int8", "compressed_psum", "psum_tree"]
 
@@ -58,7 +62,17 @@ def _per_shard_scale(g: torch.Tensor) -> torch.Tensor:
     return (flat.abs().amax(dim=1) / 127.0 + 1e-30).reshape((-1,) + (1,) * (g.dim() - 1))
 
 
-def compressed_psum(grads: Any, axis: ShardAxis, residuals: Any | None = None):
+def _whole_scale(g: torch.Tensor) -> torch.Tensor:
+    """max |g| / 127 over the whole of one rank's value (all of a DTensor's
+    blocks), as a plain 0-d tensor."""
+    from torch.distributed.tensor import DTensor
+
+    m = g.abs().max()
+    m = m.full_tensor() if isinstance(m, DTensor) else m
+    return m / 127.0 + 1e-30
+
+
+def compressed_psum(grads: Any, axis: ShardAxis | MeshAxis, residuals: Any | None = None):
     """int8 mean-reduce with error feedback. Returns ``(mean_grads,
     new_residuals)``: the means are shard-invariant, the residuals stay per
     shard (the same shapes as ``grads``). ``residuals`` holds each leaf's
@@ -68,7 +82,7 @@ def compressed_psum(grads: Any, axis: ShardAxis, residuals: Any | None = None):
     def leaf(g, r):
         gf = g.float() + (0.0 if r is None else r)
         # every shard quantises with one scale: the largest shard's
-        gscale = axis.pmax(_per_shard_scale(gf))
+        gscale = axis.pmax(_per_shard_scale(gf) if axis.stacked else _whole_scale(gf))
         q = torch.clamp(torch.round(gf / gscale), -127, 127).to(torch.int8)
         summed = axis.psum(q.to(torch.int32))
         mean = summed.float() * gscale / n
@@ -81,7 +95,7 @@ def compressed_psum(grads: Any, axis: ShardAxis, residuals: Any | None = None):
             _rebuild(grads, iter(r for _, r in out)))
 
 
-def psum_tree(grads: Any, axis: ShardAxis) -> Any:
+def psum_tree(grads: Any, axis: ShardAxis | MeshAxis) -> Any:
     """Uncompressed mean-reduce of every leaf over the shard axis (the
     baseline the compressed path replaces): shard-invariant outputs."""
     return _rebuild(grads, iter(axis.psum(g) / axis.size for g in _leaves(grads)))

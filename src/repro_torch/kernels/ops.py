@@ -35,16 +35,121 @@ Function, its forward the plain version itself, so that it too keeps only
 its inputs from the forward to the backward: kept, the (B, H, T, T) scores
 of plain attention would hold 2 GiB a layer of TinyLlama-1.1B's train step
 at batch 4 × 2,048. On the CPU the plain path's own autograd runs.
+
+On a device mesh. ``attention``, ``decode_attention``, ``rglru`` and
+``rwkv6`` take DTensors (the LM's mesh forms, ``distributed.sharding``):
+each runs the same call on its local shard through
+``torch.distributed.tensor.experimental.local_map`` (:func:`_on_mesh`),
+the batch on the mesh's data dimension and the heads (or channels) on its
+``model`` dimension, so the kernel launches on each rank's block and its
+gradient still goes through :class:`_KernelGradByPlain`. No sharded
+operand is gathered, except where the heads (or channels) do not divide the
+``model`` dimension: there they are gathered before the call, as GSPMD
+would (:func:`head_gather_needed`). A kernel that fails to build or launch
+under ``local_map`` fails the step, as it does off the mesh.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.compat import ShardAxis
+from repro_torch.compat import MeshAxis, ShardAxis
 from repro_torch.kernels import ref as _ref
 
 __all__ = ["attention", "decode_attention", "rglru", "rwkv6", "histogram",
-           "split_scan", "level_split"]
+           "split_scan", "level_split", "head_gather_needed", "kernel_io"]
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _placements(mesh, batch: int, split: int | None, batch_dim, split_dim) -> tuple:
+    """One operand's placements on ``mesh``: the ``model`` dimension shards
+    ``split_dim`` (the heads or channels) when ``split`` of them divide it,
+    every other mesh dimension shards ``batch_dim`` when ``batch`` divides
+    it; a ``None`` dim or count, or a count that does not divide,
+    replicates."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = []
+    for name, size in zip(mesh.mesh_dim_names, mesh.shape):
+        dim, count = (split_dim, split) if name == "model" else (batch_dim, batch)
+        ok = size > 1 and dim is not None and count is not None and count % size == 0
+        out.append(Shard(dim) if ok else Replicate())
+    return tuple(out)
+
+
+def head_gather_needed(n_heads: int, n_kv_heads: int, tp: int) -> bool:
+    """Whether attention on a ``model`` dimension of ``tp`` ranks gathers
+    its heads before the kernel: the query and the KV heads must both
+    divide it for each rank to hold whole GQA groups."""
+    return tp > 1 and (n_heads % tp != 0 or n_kv_heads % tp != 0)
+
+
+def _on_mesh(fn, args, dims, out_dims, *, batch: int, split: int | None):
+    """``fn(*args)`` on each rank's local shards of the DTensor ``args``
+    through ``local_map`` (a None arg passes through as None). ``dims[i]``
+    is ``(batch_dim, split_dim)`` of ``args[i]``, ``out_dims`` those of
+    each output; :func:`_placements` turns them into placements, with the
+    operands redistributed to them first."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = next(a for a in args if _is_dtensor(a)).device_mesh
+    present = [i for i, a in enumerate(args) if a is not None]
+    ins = tuple(_placements(mesh, batch, split, *dims[i]) for i in present)
+    outs = tuple(list(_placements(mesh, batch, split, *d)) for d in out_dims)
+    # an operand whole on a dimension over which the batch is split (a
+    # weight such as RWKV's u) gets each rank's gradient of its own batch
+    # block: a partial sum there
+    split_batch = _placements(mesh, batch, None, 0, None)
+    grads = tuple(tuple(Partial() if isinstance(p, Replicate) and b != Replicate() else p
+                        for p, b in zip(pl, split_batch)) for pl in ins)
+
+    def local(*tensors):
+        full = [None] * len(args)
+        for i, t in zip(present, tensors):
+            full[i] = t
+        return fn(*full)
+
+    return local_map(local, out_placements=outs if len(outs) > 1 else outs[0],
+                     in_placements=ins, in_grad_placements=grads, redistribute_inputs=True)(
+        *(args[i] for i in present))
+
+
+_io_counter = None
+
+
+class kernel_io:
+    """Within it, a kernel's plain version (``force="ref"``, or the CPU)
+    reports its forward to ``counter.kernel(fn, inputs)``, which counts
+    the bytes of the kernel's own inputs and outputs in place of the plain
+    version's intermediates (``roofline.RankFlopCounter``: the dry-run's
+    memory term is then the kernel's). Its backward, which the card too
+    runs as the plain version, is counted as it runs."""
+
+    def __init__(self, counter):
+        self.counter = counter
+
+    def __enter__(self):
+        global _io_counter
+        self._prev, _io_counter = _io_counter, self.counter
+        return self
+
+    def __exit__(self, *exc):
+        global _io_counter
+        _io_counter = self._prev
+
+
+def _as_kernel(fn, *inputs):
+    return fn(*inputs) if _io_counter is None else _io_counter.kernel(fn, inputs)
+
+
+def _tp(t) -> int:
+    mesh = t.device_mesh
+    return dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1)
 
 
 def _use_kernel(force, t: torch.Tensor) -> bool:
@@ -112,6 +217,15 @@ def attention(q, k, v, *, causal=True, window=None, scale=None,
     JAX package's ``block_q``/``block_k`` tiling arguments have no
     counterpart here: the kernel's tiles are fixed and it takes any
     sequence length."""
+    if _is_dtensor(q):
+        h, hkv = q.shape[1], k.shape[1]
+        split = None if head_gather_needed(h, hkv, _tp(q)) else hkv
+        return _on_mesh(
+            lambda q, k, v: attention(q, k, v, causal=causal, window=window, scale=scale,
+                                      logit_softcap=logit_softcap, force=force,
+                                      matmul_dtype=matmul_dtype),
+            (q, k, v), [(0, 1)] * 3, [(0, 1)], batch=q.shape[0], split=split)
+
     def plain(q, k, v):
         return _ref.attention_ref(
             q, k, v, causal=causal, window=window, scale=scale,
@@ -127,26 +241,42 @@ def attention(q, k, v, *, causal=True, window=None, scale=None,
 
         return _launch(kernel, plain, q, k, v)
     if q.is_cuda:
-        return _launch(plain, plain, q, k, v)
+        return _as_kernel(lambda *a: _launch(plain, plain, *a), q, k, v)
     if force is None and q.shape[2] > 2048:
-        return _ref.attention_xla_blocked(
+        return _as_kernel(lambda q, k, v: _ref.attention_xla_blocked(
             q, k, v, causal=causal, window=window, scale=scale,
-            logit_softcap=logit_softcap, matmul_dtype=matmul_dtype)
-    return plain(q, k, v)
+            logit_softcap=logit_softcap, matmul_dtype=matmul_dtype), q, k, v)
+    return _as_kernel(plain, q, k, v)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window=None, scale=None,
                      logit_softcap=None, matmul_dtype="float32"):
     """Single-token decode over a KV cache: plain PyTorch on every device,
     as the JAX package leaves it to XLA on both backends (one pass over the
-    cache, no Pallas kernel)."""
+    cache, no Pallas kernel). On a mesh the heads are split as
+    :func:`attention` splits them; a cache sharded on its sequence is
+    gathered for the call."""
+    if _is_dtensor(q):
+        h, hkv = q.shape[1], k_cache.shape[1]
+        split = None if head_gather_needed(h, hkv, _tp(q)) else hkv
+        return _on_mesh(
+            lambda q, k, v: decode_attention(q, k, v, cache_len, window=window, scale=scale,
+                                             logit_softcap=logit_softcap,
+                                             matmul_dtype=matmul_dtype),
+            (q, k_cache, v_cache), [(0, 1)] * 3, [(0, 1)], batch=q.shape[0], split=split)
     return _ref.decode_attention_ref(
         q, k_cache, v_cache, cache_len, window=window, scale=scale,
         logit_softcap=logit_softcap, matmul_dtype=matmul_dtype)
 
 
 def rglru(x, input_gate, rec_gate, a_param, h0=None, *, c=8.0, force=None):
-    """RG-LRU recurrence. See ``rglru_ref``; returns ``(y, h_T)``."""
+    """RG-LRU recurrence. See ``rglru_ref``; returns ``(y, h_T)``. On a
+    mesh the channels are split over ``model``."""
+    if _is_dtensor(x):
+        return _on_mesh(
+            lambda *a: rglru(*a, c=c, force=force), (x, input_gate, rec_gate, a_param, h0),
+            [(0, 2), (0, 2), (0, 2), (None, 0), (0, 1)], [(0, 2), (0, 1)],
+            batch=x.shape[0], split=x.shape[2])
     def plain(x, input_gate, rec_gate, a_param, h0):
         return _ref.rglru_ref(x, input_gate, rec_gate, a_param, h0, c=c)
 
@@ -161,14 +291,20 @@ def rglru(x, input_gate, rec_gate, a_param, h0=None, *, c=8.0, force=None):
 
         return _launch(kernel, plain, x, input_gate, rec_gate, a_param, h0)
     args = (x, input_gate, rec_gate, a_param, h0)
-    return _launch(plain, plain, *args) if x.is_cuda else plain(*args)
+    return _as_kernel(lambda *a: _launch(plain, plain, *a) if x.is_cuda else plain(*a), *args)
 
 
 def rwkv6(r, k, v, w, u, s0=None, *, force=None):
     """RWKV-6 WKV recurrence. See ``rwkv6_ref``; returns ``(y, S_T)``. The
     float32 casts of ``w``, ``u`` and ``s0`` are the ones the oracle makes
     (the JAX package's ``chunk`` argument has no counterpart: the kernel
-    runs the recurrence in time order)."""
+    runs the recurrence in time order). On a mesh the heads are split over
+    ``model``."""
+    if _is_dtensor(r):
+        return _on_mesh(
+            lambda *a: rwkv6(*a, force=force), (r, k, v, w, u, s0),
+            [(0, 1)] * 4 + [(None, 0), (0, 1)], [(0, 1), (0, 1)],
+            batch=r.shape[0], split=r.shape[1])
     if _use_kernel(force, r):
         from repro_torch.kernels.rwkv6 import rwkv6_cuda
 
@@ -179,8 +315,8 @@ def rwkv6(r, k, v, w, u, s0=None, *, force=None):
 
         return _launch(kernel, _ref.rwkv6_ref, r, k, v, w, u, s0)
     args = (r, k, v, w, u, s0)
-    return _launch(_ref.rwkv6_ref, _ref.rwkv6_ref, *args) if r.is_cuda else \
-        _ref.rwkv6_ref(*args)
+    return _as_kernel(lambda *a: _launch(_ref.rwkv6_ref, _ref.rwkv6_ref, *a) if r.is_cuda
+                      else _ref.rwkv6_ref(*a), *args)
 
 
 def _histogram_scatter(bins, grad, hess, node, n_nodes, n_bins):
@@ -288,8 +424,9 @@ def _shard_histogram(bins, g, h, node, *, n_nodes, n_bins, axis, row_valid=None,
     On the card that call is ``histogram_cuda`` (``force="ref"`` or
     ``"plain"``: the scatter); on the CPU the scatter, as the JAX package's
     sharded level scatters."""
-    if not isinstance(axis, ShardAxis):
-        raise TypeError(f"a sharded histogram needs a compat.ShardAxis, got {axis!r}")
+    if not isinstance(axis, (ShardAxis, MeshAxis)) or not axis.stacked:
+        raise TypeError("a sharded histogram needs a compat.ShardAxis (or a stacked "
+                        f"compat.MeshAxis), got {axis!r}")
     s, rs = node.shape
     nd = node.to(torch.int32) + (torch.arange(s, dtype=torch.int32, device=node.device)
                                  * n_nodes)[:, None]
@@ -329,7 +466,7 @@ def _sharded_level_split(
     if subtract:
         valid = (torch.ones(node.shape, dtype=torch.bool, device=node.device)
                  if row_valid is None else row_valid)
-        per_shard = torch.zeros((axis.size, n_nodes), dtype=torch.int32,
+        per_shard = torch.zeros((node.shape[0], n_nodes), dtype=torch.int32,
                                 device=node.device)
         cnt = axis.psum(per_shard.scatter_add_(1, node.long(), valid.to(torch.int32)))
         small_is_left = cnt[0::2] <= cnt[1::2]

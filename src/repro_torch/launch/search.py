@@ -17,7 +17,8 @@ without a card it raises.
 ``--shards N`` row-shards the prepared data N ways (DESIGN.md §3.9): the
 shards' row blocks are stacked on the one device and every family trains on
 them through ``compat.sharded_call``. Not ported yet: ``--workload lm``
-(the LM search on mesh slices, ROADMAP Queue 1 item 6).
+(run_lm, the LM search on mesh slices: the next slice, ROADMAP Queue 1
+item 6).
 """
 from __future__ import annotations
 
@@ -269,8 +270,8 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     if args.workload == "lm":
         raise NotImplementedError(
-            "--workload lm (the LM search on mesh slices) is not ported yet "
-            "(ROADMAP Queue 1 item 6)")
+            "--workload lm (run_lm, the LM search on mesh slices) waits for the "
+            "next slice of the port (ROADMAP Queue 1 item 6, its part still open)")
     run_tabular(args)
     return 0
 

@@ -21,8 +21,14 @@
   drift).
 
 Both run on the card unless ``--device cpu`` is given; without a card they
-raise. The reference's ``--mesh`` and ``--ckpt-dir`` are not ported yet
-(ROADMAP Queue 1 items 5–6).
+raise. ``--ckpt-dir D`` serves the weights of the newest checkpoint under
+``D`` (written by ``launch.train`` on one device or on any mesh).
+``--mesh data,model`` other than ``1,1`` serves on a device mesh, one rank
+per entry under ``torchrun`` (NCCL on the cards, gloo with ``--device
+cpu``); every rank serves the same waves and rank 0 prints:
+
+      torchrun --nproc-per-node 4 -m repro_torch.launch.serve --arch gemma-2b --smoke \
+          --device cpu --mesh 2,2
 """
 from __future__ import annotations
 
@@ -34,13 +40,27 @@ def run_lm_serve(args) -> int:
     import numpy as np
 
     from repro_torch import configs
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.device import default_device
     from repro_torch.models import init_params
     from repro_torch.serve import Request, ServeEngine
 
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
-    params = init_params(cfg, seed=args.seed, device=args.device)
-    engine = ServeEngine(cfg, params, batch_size=args.batch, max_len=args.max_len)
+    data_sz, model_sz = (int(x) for x in args.mesh.split(","))
+    mesh = None
+    if (data_sz, model_sz) != (1, 1):
+        from repro_torch.launch.mesh import make_test_mesh
+
+        mesh = make_test_mesh(data=data_sz, model=model_sz, device=args.device)
+    say = print if mesh is None or mesh.get_rank() == 0 else (lambda *a, **k: None)
+    if args.ckpt_dir:
+        step, state = restore_checkpoint(args.ckpt_dir, device=default_device(args.device))
+        params = state["params"]
+        say(f"serving the weights of step {step} from {args.ckpt_dir}")
+    else:
+        params = init_params(cfg, seed=args.seed, device=args.device)
+    engine = ServeEngine(cfg, params, batch_size=args.batch, max_len=args.max_len, mesh=mesh)
     rng = np.random.default_rng(0)
     pending = [
         Request(i, rng.integers(0, cfg.vocab, size=rng.integers(4, 17)).astype(np.int32),
@@ -54,10 +74,14 @@ def run_lm_serve(args) -> int:
         done += engine.serve(wave)
     secs = time.perf_counter() - t0
     toks = sum(len(r.output) for r in done)
-    print(f"served {len(done)} requests, {toks} tokens in {secs:.2f}s "
-          f"({toks / secs:.1f} tok/s) on {params.embed.device}")
+    say(f"served {len(done)} requests, {toks} tokens in {secs:.2f}s "
+        f"({toks / secs:.1f} tok/s) on {engine.device if mesh is None else 'the mesh'}")
     for r in done[:4]:
-        print(f"  req {r.request_id}: {r.output}")
+        say(f"  req {r.request_id}: {r.output}")
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
 
 
@@ -125,6 +149,8 @@ def main(argv=None) -> int:
     p.add_argument("--new-tokens", type=int, default=16)
     p.add_argument("--requests", type=int, default=8)
     p.add_argument("--seed", type=int, default=0, help="seed of the random weights")
+    p.add_argument("--mesh", default="1,1", help="data,model sizes")
+    p.add_argument("--ckpt-dir", default=None, help="serve the newest checkpoint here")
     p.add_argument("--device", default=None,
                    help="torch device (default: the card; 'cpu' to run on the CPU)")
     # -- multi-tenant search service (DESIGN.md §3.5) ----------------------

@@ -23,7 +23,7 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import Init, dense, rmsnorm, rope
 
 __all__ = ["AttnCfg", "init_attention", "attn_train", "attn_prefill", "attn_decode",
-           "init_kv_cache"]
+           "init_kv_cache", "split_heads", "merge_heads"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,9 +60,85 @@ def init_attention(init: Init, cfg: AttnCfg) -> dict:
     return p
 
 
+class _OnModelWhole(torch.autograd.Function):
+    """A DTensor made whole over the mesh's ``model`` dimension, and its
+    gradient made whole there too. A reshape that splits or merges a head
+    dimension the ``model`` ranks do not divide needs both sides whole:
+    DTensor's view rules refuse an uneven split (PyTorch 2.11) or
+    redistribute implicitly (2.13), and the gradient reaching the reshape
+    from a row-parallel product is sharded on ``model``."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.redistribute(t.device_mesh, _whole_on_model(t))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, _whole_on_model(g))
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous: the backward of a
+    head split views its gradient, which arrives transposed, and DTensor
+    runs that view on the local block (the reshape of the forward becomes a
+    view there), which fails on a non-contiguous block."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _whole_on_model(t) -> list:
+    from torch.distributed.tensor import Replicate
+
+    return [Replicate() if name == "model" else p
+            for name, p in zip(t.device_mesh.mesh_dim_names, t.placements)]
+
+
+def _heads_split(t, n: int) -> bool:
+    """Whether ``n`` heads of the DTensor ``t`` divide its ``model`` ranks."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        return True
+    sizes = dict(zip(t.device_mesh.mesh_dim_names, t.device_mesh.shape))
+    return n % sizes.get("model", 1) == 0
+
+
+def split_heads(y: torch.Tensor, n: int, head_dim: int) -> torch.Tensor:
+    """(B, T, n·head_dim) → (B, T, n, head_dim). On a mesh whose ``model``
+    dimension does not divide the ``n`` heads, the projection is gathered
+    over ``model`` first (forward and backward): a rank then holds every
+    head, as GSPMD would (``ops.head_gather_needed``)."""
+    from torch.distributed.tensor import DTensor
+
+    b, t, _ = y.shape
+    if not _heads_split(y, n):
+        y = _OnModelWhole.apply(y)
+    y = y.reshape(b, t, n, head_dim)
+    return _ContiguousGrad.apply(y) if isinstance(y, DTensor) else y
+
+
+def merge_heads(o: torch.Tensor) -> torch.Tensor:
+    """(B, T, n, head_dim) → (B, T, n·head_dim), whole over ``model`` where
+    its ranks do not divide the n heads (see :func:`split_heads`)."""
+    from torch.distributed.tensor import DTensor
+
+    b, t, n, d = o.shape
+    if isinstance(o, DTensor):
+        # DTensor runs the reshape as a view of the local block, which a
+        # transposed block cannot take
+        o = o.contiguous()
+    y = o.reshape(b, t, n * d)
+    return y if _heads_split(o, n) else _OnModelWhole.apply(y)
+
+
 def _heads(params, cfg: AttnCfg, x: torch.Tensor, which: str, n: int) -> torch.Tensor:
-    b, t, _ = x.shape
-    return dense(params[f"w{which}"], x, params.get(f"b{which}")).reshape(b, t, n, cfg.head_dim)
+    return split_heads(dense(params[f"w{which}"], x, params.get(f"b{which}")), n, cfg.head_dim)
 
 
 def _qkv(params, cfg: AttnCfg, x: torch.Tensor, kv_x: torch.Tensor, positions: torch.Tensor):
@@ -83,8 +159,7 @@ def _attend(params, cfg: AttnCfg, q, k, v, causal: bool, force):
     o = ops.attention(q, k, v, causal=causal, window=cfg.window, scale=cfg.scale,
                       logit_softcap=cfg.logit_softcap, matmul_dtype=cfg.matmul_dtype,
                       force=force)
-    b, h, t, dh = o.shape
-    return dense(params["wo"], o.transpose(1, 2).reshape(b, t, h * dh))
+    return dense(params["wo"], merge_heads(o.transpose(1, 2)))
 
 
 def attn_train(params, cfg: AttnCfg, x: torch.Tensor, positions: torch.Tensor,
@@ -102,14 +177,39 @@ def init_kv_cache(cfg: AttnCfg, batch: int, max_len: int, dtype=torch.bfloat16,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _cache_write(cache: torch.Tensor, new: torch.Tensor, start: int) -> None:
+    """``cache[:, :, start:start + T] = new`` in place. A DTensor cache (a
+    decode state on a mesh) is written on each rank's local block: the
+    positions of its own sequence range, ``new`` redistributed to the
+    cache's placements on every dimension but the sequence, so a cache
+    sharded on its sequence is written where it lies and not in a gathered
+    copy."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    new = new.to(cache.dtype)
+    if not isinstance(cache, DTensor):
+        cache[:, :, start:start + new.shape[2]] = new
+        return
+    from repro_torch.distributed.sharding import local_shape_and_offset
+
+    pls = tuple(Replicate() if isinstance(p, Shard) and p.dim == 2 else p
+                for p in cache.placements)
+    if not isinstance(new, DTensor):
+        new = DTensor.from_local(new, cache.device_mesh, [Replicate()] * len(pls))
+    block = new.redistribute(cache.device_mesh, pls).to_local()
+    length, offset = local_shape_and_offset(cache.shape, cache.device_mesh, cache.placements)
+    lo, hi = max(start, offset[2]), min(start + new.shape[2], offset[2] + length[2])
+    if lo < hi:
+        cache.to_local()[:, :, lo - offset[2]:hi - offset[2]] = block[:, :, lo - start:hi - start]
+
+
 def attn_prefill(params, cfg: AttnCfg, x: torch.Tensor, positions: torch.Tensor,
                  cache: dict, memory: torch.Tensor | None = None, *, force=None):
     """Full-sequence attention that also writes cache[:, :, 0:T] in place
     (T the memory's length for cross-attention). Returns (out, cache)."""
     q, k, v = _qkv(params, cfg, x, memory if cfg.cross else x, positions)
-    t = k.shape[2]
-    cache["k"][:, :, :t] = k.to(cache["k"].dtype)
-    cache["v"][:, :, :t] = v.to(cache["v"].dtype)
+    _cache_write(cache["k"], k, 0)
+    _cache_write(cache["v"], v, 0)
     return _attend(params, cfg, q, k, v, not cfg.cross, force), cache
 
 
@@ -119,7 +219,6 @@ def attn_decode(params, cfg: AttnCfg, x: torch.Tensor, pos: int, cache: dict):
     Self-attention writes the new K/V at ``pos`` in place, then attends over
     cache[0:pos+1]. Cross-attention attends over the whole cache (the
     encoder's K/V from the prefill) and writes nothing."""
-    b = x.shape[0]
     positions = torch.full((1,), int(pos), dtype=torch.int32, device=x.device)
     if cfg.cross:
         q = _heads(params, cfg, x, "q", cfg.n_heads)
@@ -129,10 +228,10 @@ def attn_decode(params, cfg: AttnCfg, x: torch.Tensor, pos: int, cache: dict):
         cache_len = cache["k"].shape[2]
     else:
         q, k_new, v_new = _qkv(params, cfg, x, x, positions)       # (B, H, 1, Dh)
-        cache["k"][:, :, pos:pos + 1] = k_new.to(cache["k"].dtype)
-        cache["v"][:, :, pos:pos + 1] = v_new.to(cache["v"].dtype)
+        _cache_write(cache["k"], k_new, int(pos))
+        _cache_write(cache["v"], v_new, int(pos))
         cache_len = int(pos) + 1
     o = ops.decode_attention(
         q, cache["k"], cache["v"], cache_len, window=cfg.window, scale=cfg.scale,
         logit_softcap=cfg.logit_softcap, matmul_dtype=cfg.matmul_dtype)
-    return dense(params["wo"], o.transpose(1, 2).reshape(b, 1, cfg.n_heads * cfg.head_dim)), cache
+    return dense(params["wo"], merge_heads(o.transpose(1, 2))), cache

@@ -14,6 +14,7 @@ from torch import nn
 __all__ = [
     "Init",
     "ParamTree",
+    "gathered",
     "rmsnorm",
     "layernorm",
     "dense",
@@ -111,11 +112,29 @@ def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def gathered(w: torch.Tensor) -> torch.Tensor:
+    """A weight as a product uses it: on a mesh, a DTensor sharded over a
+    data dimension (FSDP) is gathered there first, keeping its ``model``
+    sharding; its gradient is reduce-scattered back (the backward of the
+    gather). Left to DTensor, the product may move the activations instead,
+    which on a large batch or vocabulary costs far more. Anything else is
+    returned as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(w, DTensor):
+        return w
+    names = w.device_mesh.mesh_dim_names
+    pls = [Replicate() if name != "model" and isinstance(p, Shard) else p
+           for name, p in zip(names, w.placements)]
+    return w if list(w.placements) == pls else w.redistribute(w.device_mesh, pls)
+
+
 def dense(w: torch.Tensor, x: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
     """x @ w in x's dtype: the weight is cast to it on every call (float32
     parameters become bf16 operands, as the JAX package does), the product
-    accumulates in float32 and is rounded to x's dtype once."""
-    y = torch.matmul(x, w.to(x.dtype))
+    accumulates in float32 and is rounded to x's dtype once. On a mesh an
+    FSDP-sharded weight is gathered first (:func:`gathered`)."""
+    y = torch.matmul(x, gathered(w).to(x.dtype))
     if b is not None:
         y = y + b.to(y.dtype)
     return y

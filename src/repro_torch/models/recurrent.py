@@ -12,7 +12,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import Init, causal_conv1d, dense
+from repro_torch.models.attention import merge_heads, split_heads
+from repro_torch.models.layers import Init, causal_conv1d, dense, gathered
 
 __all__ = [
     "init_rglru_block", "rglru_block_apply", "init_rglru_state",
@@ -118,7 +119,7 @@ def _time_mix(p, x: torch.Tensor, shift_prev, wkv_state, head_size: int, force):
         return x + delta * p[f"mu_{name}"].to(x.dtype)
 
     def heads(y):
-        return y.reshape(b, t, h, head_size).transpose(1, 2)
+        return split_heads(y, h, head_size).transpose(1, 2)
 
     r = heads(dense(p["wr"], mixed("r")))
     k = heads(dense(p["wk"], mixed("k")))
@@ -126,13 +127,14 @@ def _time_mix(p, x: torch.Tensor, shift_prev, wkv_state, head_size: int, force):
     g = F.silu(dense(p["wg"], mixed("g")))
     # Finch's data-dependent decay through a low-rank adapter, in float32
     xw = mixed("w").float()
-    w = p["w0"].float() + torch.tanh(xw @ p["w_lora_a"].float()) @ p["w_lora_b"].float()
+    w = (p["w0"].float()
+         + torch.tanh(xw @ gathered(p["w_lora_a"]).float()) @ gathered(p["w_lora_b"]).float())
     y, s_last = ops.rwkv6(r, k, v, heads(w), p["u"], wkv_state, force=force)
     # per-head group norm (RWKV's ln_x)
     yf = y.transpose(1, 2).float()                                # (B, T, H, hs)
     mu = yf.mean(-1, keepdim=True)
     var = ((yf - mu) ** 2).mean(-1, keepdim=True)
-    yf = ((yf - mu) * torch.rsqrt(var + 1e-5)).reshape(b, t, d)
+    yf = merge_heads((yf - mu) * torch.rsqrt(var + 1e-5))
     y = (yf * p["ln_x"]["scale"] + p["ln_x"]["bias"]).to(x.dtype)
     return dense(p["wo"], y * g), new_shift, s_last
 

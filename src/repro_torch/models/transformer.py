@@ -36,6 +36,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -49,8 +50,8 @@ from repro_torch.models.attention import (
     init_attention,
     init_kv_cache,
 )
-from repro_torch.models.layers import Init, ParamTree, ffn_apply, init_ffn, init_norm, \
-    layernorm, rmsnorm
+from repro_torch.models.layers import Init, ParamTree, ffn_apply, gathered, init_ffn, \
+    init_norm, layernorm, rmsnorm
 from repro_torch.models.moe import init_moe, moe_apply
 
 __all__ = ["LayerSpec", "ArchConfig", "LMParams", "init_params", "params_from_reference",
@@ -369,9 +370,49 @@ def _norm(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
     return rmsnorm(p, x) if cfg.norm == "rmsnorm" else layernorm(p, x)
 
 
+class _BatchSharded(torch.autograd.Function):
+    """``x`` redistributed to ``placements``; its gradient sharded as ``x``
+    was (as ``placements`` where ``x`` was a partial sum). Left to
+    DTensor, the gradient of a sum over a sharded dimension comes back
+    whole (a broadcast scalar), and every backward product after it would
+    run on the whole batch, or the whole vocabulary, on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        from torch.distributed.tensor import Partial
+
+        partial = any(isinstance(p, Partial) for p in x.placements)
+        ctx.placements = placements if partial else x.placements
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.placements), None
+
+
+def _batch_sharded(x: torch.Tensor) -> torch.Tensor:
+    """On a mesh, the residual stream ``x`` (B, T, d) as the layers pass it
+    on: the batch over the data dimension (where it divides), whole on
+    ``model``, in the forward and in the backward. Left to itself DTensor's
+    propagation may split the sequence over ``model`` after a row-parallel
+    product, and then fold it into the batch in the next product's
+    flattening; fixing the layout at each block's entry keeps every product
+    a plain column- or row-parallel one. A plain tensor is returned as it
+    is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    pls = tuple(Replicate() if name == "model" or x.shape[0] % n else Shard(0)
+                for name, n in zip(mesh.mesh_dim_names, mesh.shape))
+    return _BatchSharded.apply(x, pls)
+
+
 def _ffn_block(cfg: ArchConfig, spec: LayerSpec, p, x: torch.Tensor) -> torch.Tensor:
     if spec.ffn == "none":
         return x
+    x = _batch_sharded(x)
     h = _norm(cfg, p["norm2"], x)
     if spec.ffn == "moe":
         h = moe_apply(p["moe"], h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
@@ -384,15 +425,17 @@ def _ffn_block(cfg: ArchConfig, spec: LayerSpec, p, x: torch.Tensor) -> torch.Te
 
 
 def _rwkv_layer(cfg: ArchConfig, p, x: torch.Tensor, st: dict | None, force):
+    x = _batch_sharded(x)
     t_out, tstate = recurrent.rwkv_time_mix(p, _norm(cfg, p["norm1"], x), st,
                                             cfg.rwkv_head_size, force=force)
-    x = x + t_out
+    x = _batch_sharded(x + t_out)
     c_out, cstate = recurrent.rwkv_channel_mix(p, _norm(cfg, p["norm2"], x), st)
     return x + c_out, {**tstate, **cstate}
 
 
 def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p, x: torch.Tensor,
                  positions: torch.Tensor, memory: torch.Tensor | None, force) -> torch.Tensor:
+    x = _batch_sharded(x)
     if spec.kind == "rwkv":
         return _rwkv_layer(cfg, p, x, None, force)[0]
     h = _norm(cfg, p["norm1"], x)
@@ -413,6 +456,7 @@ def _prefill_layer(cfg: ArchConfig, spec: LayerSpec, p, st: dict, x: torch.Tenso
                    positions: torch.Tensor, memory: torch.Tensor | None,
                    force) -> torch.Tensor:
     """One layer over the prompt; fills ``st`` in place."""
+    x = _batch_sharded(x)
     if spec.kind == "rwkv":
         x, st["rwkv"] = _rwkv_layer(cfg, p, x, None, force)
         return x
@@ -436,6 +480,7 @@ def _prefill_layer(cfg: ArchConfig, spec: LayerSpec, p, st: dict, x: torch.Tenso
 def _decode_layer(cfg: ArchConfig, spec: LayerSpec, p, st: dict, x: torch.Tensor,
                   pos: int, force) -> torch.Tensor:
     """One layer for one token; updates ``st`` in place."""
+    x = _batch_sharded(x)
     if spec.kind == "rwkv":
         x, st["rwkv"] = _rwkv_layer(cfg, p, x, st["rwkv"], force)
         return x
@@ -458,8 +503,48 @@ def _decode_layer(cfg: ArchConfig, spec: LayerSpec, p, st: dict, x: torch.Tensor
 # Full sequence, prefill, decode
 # ---------------------------------------------------------------------------
 
+def _lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``embed[tokens]``. On a mesh (DTensors) it is the vocabulary-parallel
+    lookup under ``local_map``: each ``model`` rank looks up the tokens in
+    its rows of the table (zero for the others), a partial sum over
+    ``model``; DTensor's own rule for a vocabulary-sharded table fails on
+    a batch sharded over the data dimension. A table whose rows do not
+    divide ``model`` is gathered first."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if not isinstance(embed, DTensor):
+        return F.embedding(tokens, embed)
+    mesh = embed.device_mesh
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    tp = sizes.get("model", 1)
+    split = tp > 1 and embed.shape[0] % tp == 0
+    rows = embed.shape[0] // tp if split else embed.shape[0]
+    tok_pl = [Replicate() if name == "model" or tokens.shape[0] % n else Shard(0)
+              for name, n in zip(mesh.mesh_dim_names, mesh.shape)]
+    tab_pl = [Shard(0) if name == "model" and split else Replicate()
+              for name in mesh.mesh_dim_names]
+    out_pl = [Partial() if name == "model" and split else p
+              for name, p in zip(mesh.mesh_dim_names, tok_pl)]
+    # a data rank's table gradient comes from its own tokens: a sum over data
+    grad_pl = [Partial() if name != "model" and isinstance(p, Shard) else q
+               for name, p, q in zip(mesh.mesh_dim_names, tok_pl, tab_pl)]
+
+    def local(table, tok):
+        lo = mesh.get_local_rank("model") * rows if split else 0
+        own = (tok >= lo) & (tok < lo + rows)
+        x = F.embedding(torch.where(own, tok - lo, 0), table)
+        return torch.where(own[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return local_map(local, out_placements=out_pl, in_placements=(tab_pl, tok_pl),
+                     in_grad_placements=(grad_pl, tok_pl),
+                     redistribute_inputs=True)(embed, tokens)
+
+
 def _embed(cfg: ArchConfig, params: LMParams, tokens: torch.Tensor) -> torch.Tensor:
-    x = params.embed[tokens].to(cfg.cdtype)
+    x = _lookup(params.embed, tokens).to(cfg.cdtype)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.cdtype, device=x.device)
     return x
@@ -494,10 +579,11 @@ def _run_encoder(cfg: ArchConfig, params: LMParams, enc_embeds, force) -> torch.
     x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(x.dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     for lp in params.encoder:
+        x = _batch_sharded(x)
         x = x + attn_train(lp["attn"], cfg.attn_cfg(_ENC_SPEC), _norm(cfg, lp["norm1"], x),
                            positions, causal=False, force=force)
         x = x + ffn_apply(lp["ffn"], _norm(cfg, lp["norm2"], x), cfg.ffn_act)
-    return _norm(cfg, params.enc_norm, x)
+    return _norm(cfg, params.enc_norm, _batch_sharded(x))
 
 
 def _memory(cfg: ArchConfig, params: LMParams, batch: dict, force) -> torch.Tensor | None:
@@ -520,10 +606,36 @@ def _project(cfg: ArchConfig, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _logits(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
-    return _project(cfg, x, _unembed(cfg, params))
+    return _project(cfg, x, gathered(_unembed(cfg, params)))
 
 
-def forward_hidden(cfg: ArchConfig, params, batch: dict, *, force=None) -> torch.Tensor:
+def _remat(fn, remat: str):
+    """``fn`` recomputed in the backward: ``"full"`` keeps only the layer's
+    input, ``"dots"`` keeps the products' outputs too (the reference's
+    remat policies); ``"none"`` keeps everything."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    if remat == "dots":
+        import functools
+
+        from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+        products = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                    torch.ops.aten.addmm.default}
+
+        def policy(ctx, op, *args, **kwargs):
+            return (CheckpointPolicy.MUST_SAVE if op in products
+                    else CheckpointPolicy.PREFER_RECOMPUTE)
+
+        ctx = functools.partial(create_selective_checkpoint_contexts, policy)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False, context_fn=ctx)
+    raise ValueError(f"unknown remat policy {remat!r}")
+
+
+def forward_hidden(cfg: ArchConfig, params, batch: dict, *, force=None,
+                   remat: str = "none") -> torch.Tensor:
     """Embeddings → stack → final norm. batch: ``{"tokens": (B, S)}`` and
     the stub inputs the config reads (``enc_embeds``, ``patch_embeds``).
     Records autograd's graph when grad mode is on and a weight requires
@@ -533,18 +645,22 @@ def forward_hidden(cfg: ArchConfig, params, batch: dict, *, force=None) -> torch
     x = _embed_inputs(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     memory = _memory(cfg, params, batch, force)
+    layer = _remat(_apply_layer, remat)
     for spec, p in zip(layer_specs(cfg), params.layers):
-        x = _apply_layer(cfg, spec, p, x, positions, memory, force)
-    return _norm(cfg, params.final_norm, x)
+        x = layer(cfg, spec, p, x, positions, memory, force)
+    return _norm(cfg, params.final_norm, _batch_sharded(x))
 
 
 def _chunk_loss(cfg: ArchConfig, h: torch.Tensor, y: torch.Tensor, w: torch.Tensor):
-    """Summed masked CE of one (B, chunk) slice and its count of labels."""
-    logits = _project(cfg, h, w)
+    """Summed masked CE of one (B, chunk) slice and its count of labels. On
+    a mesh the chunk's logits are gathered over ``model`` (the vocabulary)
+    before the gold logit's gather, which DTensor cannot take from a
+    vocabulary-sharded operand."""
+    logits = _batch_sharded(_project(cfg, h, w))
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, y.clamp(min=0)[..., None])[..., 0]
     mask = (y >= 0).to(torch.float32)
-    return torch.sum((lse - gold) * mask), torch.sum(mask)
+    return torch.sum(_batch_sharded((lse - gold) * mask)), torch.sum(mask)
 
 
 def lm_loss(cfg: ArchConfig, params, hidden: torch.Tensor, labels) -> torch.Tensor:
@@ -553,7 +669,7 @@ def lm_loss(cfg: ArchConfig, params, hidden: torch.Tensor, labels) -> torch.Tens
     checkpointing, so a (B, chunk, V) logits tensor is the largest that
     exists, in the backward too (it recomputes one chunk's logits at a
     time). The chunks and their float32 sums are the reference's."""
-    w = _unembed(cfg, _view(cfg, params))
+    w = gathered(_unembed(cfg, _view(cfg, params)))     # once, not a chunk
     labels = torch.as_tensor(labels, device=hidden.device).long()
     s = hidden.shape[1]
     chunk = min(cfg.loss_chunk, s)
@@ -570,10 +686,11 @@ def lm_loss(cfg: ArchConfig, params, hidden: torch.Tensor, labels) -> torch.Tens
     return tot / torch.clamp(cnt, min=1.0)
 
 
-def train_loss(cfg: ArchConfig, params, batch: dict, *, force=None) -> torch.Tensor:
+def train_loss(cfg: ArchConfig, params, batch: dict, *, force=None,
+               remat: str = "none") -> torch.Tensor:
     """The training objective: :func:`lm_loss` of :func:`forward_hidden`.
     batch: ``{"tokens": (B, S), "labels": (B, S)}``."""
-    hidden = forward_hidden(cfg, params, batch, force=force)
+    hidden = forward_hidden(cfg, params, batch, force=force, remat=remat)
     return lm_loss(cfg, params, hidden, batch["labels"])
 
 
@@ -616,7 +733,7 @@ def prefill(cfg: ArchConfig, params: LMParams, state: list[dict], batch: dict, *
     memory = _memory(cfg, params, batch, force)
     for spec, p, st in zip(layer_specs(cfg), params.layers, state):
         x = _prefill_layer(cfg, spec, p, st, x, positions, memory, force)
-    x = _norm(cfg, params.final_norm, x)
+    x = _norm(cfg, params.final_norm, _batch_sharded(x))
     return _logits(cfg, params, x[:, -1]), state
 
 
@@ -634,5 +751,5 @@ def decode_step(cfg: ArchConfig, params: LMParams, state: list[dict], tokens,
         x = x + params.pos_embed[row][None, None].to(x.dtype)
     for spec, p, st in zip(layer_specs(cfg), params.layers, state):
         x = _decode_layer(cfg, spec, p, st, x, pos, force)
-    x = _norm(cfg, params.final_norm, x)
+    x = _norm(cfg, params.final_norm, _batch_sharded(x))
     return _logits(cfg, params, x[:, 0]), state

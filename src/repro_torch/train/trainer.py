@@ -1,7 +1,13 @@
 """The training-loop driver: step loop + checkpoint/restart + fault recovery.
 
-The port of the JAX package's ``train/trainer.py`` on one device (a
-``device=``, not a ``Mesh``). Fault model:
+The port of the JAX package's ``train/trainer.py``, on one device
+(``device=``) or over a ``torch.distributed`` device mesh (``mesh=``, the
+reference's ``Mesh``; :mod:`repro_torch.train.train_step` has its two DP
+modes). A mesh state is checkpointed whole, in the reference's format:
+every rank gathers each leaf and rank 0 writes it, synchronously, then
+all ranks meet at a barrier so each sees the file; a restore reads the
+whole tree on every rank and places it on the mesh, so a checkpoint moves
+between one device and any mesh. Fault model:
   * process crash / preemption → restart resumes from the latest checkpoint;
     the data stream is step-indexed so resumed training consumes exactly the
     batches it would have seen (no skips, no repeats);
@@ -18,12 +24,15 @@ import time
 from typing import Any, Callable
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager, latest_step
 from repro_torch.device import default_device
 from repro_torch.models.transformer import ArchConfig
 from repro_torch.train.optimizer import Optimizer
-from repro_torch.train.train_step import build_train_step, init_train_state
+from repro_torch.train.train_step import build_train_step, data_size_of, distribute_tree, \
+    gather_tree, init_train_state, make_train_state_specs
 
 __all__ = ["Trainer", "TrainMetrics"]
 
@@ -55,33 +64,65 @@ class Trainer:
         *,
         device=None,
         force=None,
+        mesh=None,
+        fsdp: bool = False,
+        zero1: bool = True,
     ):
-        self.cfg, self.optimizer, self.stream = cfg, optimizer, stream
-        self.device = default_device(device)
-        self.ckpt = CheckpointManager(ckpt_dir, every=ckpt_every) if ckpt_dir else None
+        self.cfg, self.optimizer, self.stream, self.mesh = cfg, optimizer, stream, mesh
+        self.device = torch.device(mesh.device_type) if mesh is not None else \
+            default_device(device)
+        self._writer = mesh is None or dist.get_rank() == 0
+        self.ckpt = (CheckpointManager(ckpt_dir, every=ckpt_every, async_save=mesh is None)
+                     if ckpt_dir else None)
         self.metrics = TrainMetrics()
         self.failure_hook = failure_hook
         self.max_retries = max_retries
+        self.state_specs = None
+        if mesh is not None:
+            _, self.state_specs = make_train_state_specs(cfg, optimizer, fsdp=fsdp, zero1=zero1,
+                                                    data_size=data_size_of(mesh))
         self._step_fn = build_train_step(cfg, optimizer, grad_clip=grad_clip,
-                                         dp_mode=dp_mode, force=force)
+                                         dp_mode=dp_mode, mesh=mesh, force=force,
+                                         state_specs=self.state_specs)
         self.state: Any = None
 
     # ------------------------------------------------------------------
     def _restore(self) -> int:
         step, tree = self.ckpt.restore_latest(device=self.device)
-        self.state = {**tree, "step": int(tree["step"])}
+        tree = {**tree, "step": int(tree["step"])}
+        if self.mesh is not None:
+            specs = self.state_specs
+            tree = {"step": tree["step"],
+                    "params": distribute_tree(tree["params"], self.mesh, specs["params"]),
+                    "opt_state": distribute_tree(tree["opt_state"], self.mesh,
+                                                 specs["opt_state"])}
+        self.state = tree
         self.metrics.restores += 1
         return self.state["step"]
 
     def _snapshot(self) -> dict:
-        """The state as the reference checkpoints it (an int32 step)."""
-        return {**self.state, "step": np.int32(self.state["step"])}
+        """The state as the reference checkpoints it (an int32 step), whole:
+        a mesh state's leaves gathered (every rank takes part)."""
+        state = {k: self.state[k] for k in ("params", "opt_state")}
+        if self.mesh is not None:
+            state = gather_tree(state)
+        return {**state, "step": np.int32(self.state["step"])}
+
+    def _maybe_save(self, step: int) -> None:
+        if step % self.ckpt.every:
+            return
+        snap = self._snapshot()
+        if self._writer:
+            self.ckpt.maybe_save(step, snap)
+        if self.mesh is not None:
+            dist.barrier()
 
     def init_or_restore(self, seed: int = 0) -> int:
         """Fresh init, or resume from the latest checkpoint if one exists."""
         if self.ckpt and latest_step(self.ckpt.directory) is not None:
             return self._restore()
-        self.state = init_train_state(self.cfg, self.optimizer, seed, device=self.device)
+        self.state = init_train_state(self.cfg, self.optimizer, seed, device=self.device,
+                                      mesh=self.mesh, state_specs=self.state_specs)
         return 0
 
     def run(self, n_steps: int) -> TrainMetrics:
@@ -117,7 +158,7 @@ class Trainer:
             self.metrics.log(step, loss, gnorm, time.perf_counter() - t0)
             step += 1
             if self.ckpt:
-                self.ckpt.maybe_save(step, self._snapshot())
+                self._maybe_save(step)
         if self.ckpt:
             self.ckpt.wait()
         return self.metrics

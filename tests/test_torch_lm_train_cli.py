@@ -44,10 +44,28 @@ def test_train_launcher_trains_on_the_cpu(capsys, tmp_path):
 
 @pytest.mark.parametrize("flags", [["--mesh", "2,1"], ["--dp-mode", "shard_map_int8"]])
 def test_train_launcher_mesh_forms_not_ported(flags):
+    """The mesh forms, once refused, now train: as the ranks of a gloo
+    group in child processes (a mesh of 2 ranks for ``--mesh 2,1``, a 1 x 1
+    mesh for ``--dp-mode shard_map_int8``). A mesh larger than the launch's
+    ranks raises before any process group is made."""
+    from pathlib import Path
+
+    from repro_torch.launch.mesh import run_local_ranks
     from repro_torch.launch.train import main
 
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        main(["--arch", "qwen2-1.5b", "--smoke", "--device", "cpu", "--steps", "1", *flags])
+    argv = ["--arch", "qwen2-1.5b", "--smoke", "--device", "cpu", "--steps", "3",
+            "--batch", "4", "--seq-len", "16", *flags]
+    if flags[0] == "--mesh":
+        with pytest.raises(RuntimeError, match="needs 2 ranks"):
+            main(argv)
+    n = 2 if flags[0] == "--mesh" else 1
+    outs = run_local_ranks(f"from repro_torch.launch.train import main; main({argv!r})", n,
+                           timeout=120, env={"PYTHONPATH": str(Path(__file__).resolve()
+                                                               .parents[1] / "src"),
+                                             "OMP_NUM_THREADS": "1"})
+    assert "training qwen2-smoke from step 0 on mesh" in outs[0], outs[0][-2000:]
+    assert "done: final loss" in outs[0] and "nan_skips=0" in outs[0]
+    assert all("done" not in o for o in outs[1:])          # rank 0 prints
 
 
 def test_train_lm_example_lowers_the_loss(capsys, tmp_path):

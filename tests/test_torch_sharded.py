@@ -446,7 +446,8 @@ def test_sharded_call_psum_matches_numpy_and_refuses_a_mesh():
     with pytest.raises(ValueError, match="8 shards"):
         compat.sharded_call(per_shard, n_shards=8)(x[:4])
     mesh = make_mesh((8,), ("shards",), "cpu")
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
+    # one rank per shard needs a torch.distributed mesh (tests/test_torch_sharded_mesh.py)
+    with pytest.raises(TypeError, match="torch.distributed"):
         compat.sharded_call(per_shard, n_shards=8, mesh=mesh)
     # a mesh without a matching shards axis keeps the one-device lowering
     assert compat.sharded_call(per_shard, n_shards=8,
