@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases 1,6,13,14 # the dense LMs served and TinyLlama trained
     python3 chip_smoke.py --phases 1,15   # whisper, InternVL and the MoEs served
     python3 chip_smoke.py --phases 1,16   # the device-mesh layer
+    python3 chip_smoke.py --phases 1,14,17 # the LM search on mesh slices and the pipeline
 
 It imports only the port (``src/repro_torch``), never JAX or the JAX
 package, and exits non-zero without printing a result when CUDA is absent
@@ -104,7 +105,24 @@ or any phase fails. Phases:
    rows: its split decisions bit-equal to the stacked lowering's, its leaf
    sums within HIST_TOL (the histogram kernel associates a cell's rows by
    row chunks, which differ between one block and two side by side), the
-   histogram kernel and the split scan launched in each rank.
+   histogram kernel and the split scan launched in each rank;
+17. the LM search on mesh slices and the GPipe pipeline: ``run_lm`` through
+   the search launcher at its defaults (6 smoke-config tasks, 2 logical
+   slices on cuda:0, 5 steps each: every task ok with a finite loss, one
+   task's loss bit-equal to a one-device ``Trainer``'s, flash launches a
+   task); the LM search at full width through a ``MeshSliceExecutorPool``
+   with a task runner, as ``examples/distributed_search.py`` runs it:
+   TinyLlama-1.1B at full width and depth on 2 logical slices, AdamW at lr
+   1e-5 and 3e-5, 3 steps each on batch 4 x 2,048 (the lr 1e-5 task's
+   losses bit-equal to phase 14's first three, or to a one-device
+   ``Trainer``'s when phase 14 did not run; each task's state freed before
+   the next; peak memory within 1.1x phase 14's); and
+   ``distributed.pipeline.pipeline_apply`` over two gloo ranks sharing
+   cuda:0, S = 2 stages of 11 of TinyLlama-1.1B's 22 layers each (every
+   rank holding its own stage as DTensors), x of (8, 512, 2048) embeddings
+   in M = 4 microbatches: the output bit-equal to both stages applied in
+   order to each microbatch on one rank, within the plain path's bf16
+   noise of one pass over the whole batch, 44 flash launches a rank.
 
 Phase 2 also holds the sharded level (the shards' partial histograms in
 one histogram launch, summed in shard order, scanned by ``split_scan``)
@@ -2639,9 +2657,299 @@ def phase_mesh(torch, out: dict) -> None:
                        dryrun=[r.summary() for r in dry["reports"]])
 
 
+# ---------------------------------------------------------------------------
+# The LM search on mesh slices and the pipeline (phase 17)
+# ---------------------------------------------------------------------------
+
+# (b): TinyLlama-1.1B at full width and depth on two logical slices, one
+# task an lr; the first is phase 14's, so its losses are phase 14's first
+# three; its peak memory may exceed phase 14's by at most this factor
+LM_SEARCH_LRS, LM_SEARCH_STEPS, LM_SEARCH_PEAK_FACTOR = (1e-5, 3e-5), 3, 1.1
+# phase 14's peak when it did not run in this call (PERF.md: NVIDIA H100
+# 80GB HBM3 at 700 W)
+TRAIN_PEAK_BYTES = 38.40 * 2**30
+# (c): S stages of TinyLlama-1.1B's layers, x of (PIPE_BATCH, PIPE_SEQ,
+# d_model) embeddings in PIPE_MICROBATCHES microbatches
+PIPE_STAGES, PIPE_MICROBATCHES, PIPE_BATCH, PIPE_SEQ = 2, 4, 8, 512
+
+_PIPELINE_RANK = r"""
+import hashlib, json, time, dataclasses
+import torch, torch.distributed as dist
+import torch.nn.functional as F
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor
+from repro_torch import configs
+from repro_torch.distributed.pipeline import bubble_fraction, pipeline_apply, \
+    stage_params_sharding
+from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.launch.mesh import init_process_group
+from repro_torch.models import transformer as tm
+from repro_torch.models.layers import Init
+S, M, B, T, ARCH = {S}, {M}, {B}, {T}, {ARCH!r}
+t_start = time.perf_counter()
+init_process_group("gloo")
+# two ranks share cuda:0: take it before the mesh, which would otherwise
+# pick the card LOCAL_RANK names; the mesh is a CUDA mesh on a gloo group,
+# so a DTensor's local block stays on the card
+torch.cuda.set_device(0)
+torch.zeros(1, device="cuda")
+mesh = init_device_mesh("cuda", (S,), mesh_dim_names=("stage",))
+rank = dist.get_rank()
+cfg = configs.get_config(ARCH)
+specs = tm.layer_specs(cfg)
+per = len(specs) // S
+
+class CardInit(Init):
+    def normal(self, shape, stddev=None):
+        std = stddev if stddev is not None else shape[0] ** -0.5
+        x = torch.randn(shape, generator=self.generator, device="cuda", dtype=torch.float32)
+        return x.mul_(std).to(self.dtype)
+
+# every rank draws the same weights (one CUDA generator a seed) and keeps
+# its own stage for the pipeline; rank 0 keeps both for the references
+init = CardInit(torch.Generator(device="cuda").manual_seed(17), cfg.pdtype, "cuda")
+layers = [tm._init_layer(init, cfg, spec) for spec in specs]
+stages = [{{f"l{{i}}": layers[s * per + i] for i in range(per)}} for s in range(S)]
+embed = init.normal((cfg.vocab, cfg.d_model))
+tokens = torch.randint(0, cfg.vocab, (B, T), device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(18))
+x = F.embedding(tokens, embed).to(cfg.cdtype)
+del embed
+positions = torch.arange(T, device="cuda")
+
+def stage_fn(p, h, cfg=cfg, force=None):
+    for i in range(per):
+        h = tm._apply_layer(cfg, specs[i], p[f"l{{i}}"], h, positions, None, force)
+    return h
+
+pl = stage_params_sharding(mesh, stages[rank])
+def own(leaf, placements):
+    if isinstance(leaf, dict):
+        return {{k: own(v, placements[k]) for k, v in leaf.items()}}
+    return DTensor.from_local(leaf[None], mesh, placements, run_check=False)
+stage_params = own(stages[rank], pl)
+def numel(t, local=False):
+    if isinstance(t, dict):
+        return sum(numel(v, local) for v in t.values())
+    return t.to_local().numel() if local else t.numel()
+holds, all_layers = numel(stage_params, local=True), sum(numel(l) for l in layers)
+if rank != 0:
+    del layers, stages
+torch.cuda.synchronize()
+reset_launch_counts()
+t0 = time.perf_counter()
+with torch.no_grad():
+    y = pipeline_apply(stage_fn, stage_params, x, mesh, n_microbatches=M)
+torch.cuda.synchronize()
+secs = time.perf_counter() - t0
+flash = launch_counts()["flash_attention"]
+# again, warm (the first call in a process pays for cuBLAS's set-up and the
+# pinned staging buffers' first allocations); the same bits expected
+t0 = time.perf_counter()
+with torch.no_grad():
+    again = pipeline_apply(stage_fn, stage_params, x, mesh, n_microbatches=M)
+torch.cuda.synchronize()
+warm = time.perf_counter() - t0
+rep = dict(rank=rank, flash=flash, secs=secs, warm=warm, rerun_equal=bool(torch.equal(y, again)),
+           shape=list(y.shape),
+           finite=bool(torch.isfinite(y).all()),
+           digest=hashlib.sha1(y.view(torch.int16).cpu().numpy().tobytes()).hexdigest(),
+           holds=holds, all_layers=all_layers)
+if rank == 0:
+    with torch.no_grad():
+        seq = torch.cat([stage_fn(stages[1], stage_fn(stages[0], xm))
+                         for xm in x.reshape((M, B // M) + tuple(x.shape[1:]))])
+        whole = stage_fn(stages[1], stage_fn(stages[0], x))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stage_fn(stages[1], stage_fn(stages[0], x))
+        torch.cuda.synchronize()
+        whole_s = time.perf_counter() - t0
+        plain = stage_fn(stages[1], stage_fn(stages[0], x, force="ref"), force="ref")
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        plain32 = stage_fn(stages[1], stage_fn(stages[0], x.float(), cfg32, "ref"), cfg32, "ref")
+    rep.update(bit_equal=bool(torch.equal(y, seq)),
+               whole_err=float((y.float() - whole.float()).abs().max()),
+               noise=float((plain.float() - plain32).abs().max()),
+               scale=float(plain32.abs().max()), bubble=bubble_fraction(S, M), whole_s=whole_s)
+rep["wall"] = time.perf_counter() - t_start
+print("RANK " + json.dumps(rep), flush=True)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def phase_lm_search(torch, out: dict) -> None:
+    import gc
+    import os
+
+    from repro_torch import configs
+    from repro_torch.core import MeshSliceExecutorPool, TrainTask, schedule
+    from repro_torch.data.pipeline import make_lm_stream
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import search
+    from repro_torch.launch.mesh import make_mesh, run_local_ranks
+    from repro_torch.models import count_params, init_params, layer_specs
+    from repro_torch.train import Trainer, make_optimizer
+
+    def attn_layers(cfg) -> int:
+        return sum(spec.kind == "attn" for spec in layer_specs(cfg))
+
+    # -- (a) run_lm at the launcher's defaults --------------------------------
+    t0 = time.perf_counter()
+    args = search.parse_args(["--workload", "lm"])
+    reset_launch_counts()
+    results = search.run_lm(args)
+    flash = launch_counts()["flash_attention"]
+    a_s = time.perf_counter() - t0
+    want_flash = sum(attn_layers(configs.get_smoke_config(r.task.estimator)) * args.steps
+                     for r in results)
+    _check(len(results) == 6 and all(r.ok and np.isfinite(r.model) for r in results),
+           "run_lm: " + "; ".join(f"{r.task.key()} {r.model if r.ok else r.error}"
+                                  for r in results))
+    _check({r.executor_id for r in results} == {0, 1}, "run_lm used one slice")
+    _check(flash == want_flash, f"run_lm launched flash {flash} times, {want_flash} expected")
+    first = results[0]
+    cfg = configs.get_smoke_config(first.task.estimator)
+    stream = make_lm_stream(4, 32, cfg.vocab, device="cuda")
+    try:
+        ref = Trainer(cfg, make_optimizer("adamw", lr=first.task.params["lr"]), stream,
+                      device="cuda").run(args.steps).history[-1]["loss"]
+    finally:
+        stream.close()
+    _check(first.model == ref, f"run_lm's {first.task.key()} loss {first.model!r}, a "
+                               f"one-device Trainer's {ref!r}")
+    print(f"  (a) run_lm: {len(results)} tasks on {args.slices} logical slices of cuda:0, "
+          f"{args.steps} steps each, all ok; {first.task.key()}'s loss {first.model:.6f} "
+          f"bit-equal to a one-device Trainer's; flash launches {flash} = "
+          f"{flash / len(results):g} a task; {a_s:.1f} s", flush=True)
+    _add_lm_launches(out, {"flash_attention": flash})
+
+    # -- (b) TinyLlama-1.1B at full width through the pool --------------------
+    t0 = time.perf_counter()
+    cfg = configs.get_config(TRAIN_ARCH)
+    cost = count_params(init_params(cfg, device="meta")) * LM_SEARCH_STEPS
+    tasks = [TrainTask(task_id=i, estimator=TRAIN_ARCH, params={"lr": lr}, cost=float(cost))
+             for i, lr in enumerate(LM_SEARCH_LRS)]
+    assignment = schedule(tasks, 2, policy="lpt")
+
+    def train(lr):
+        """LM_SEARCH_STEPS AdamW steps from seed 0 on phase 14's stream: the
+        losses; the trainer and its state are freed before returning."""
+        stream = make_lm_stream(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab, seed=0, device="cuda")
+        tr = Trainer(cfg, make_optimizer("adamw", lr=lr), stream, device="cuda")
+        tr.init_or_restore(seed=0)
+        try:
+            hist = tr.run(LM_SEARCH_STEPS).history
+        finally:
+            stream.close()
+            del tr
+            gc.collect()
+        return [h["loss"] for h in hist]
+
+    def runner(task, sl, _data):
+        _check(sl.device == torch.device("cuda"), f"slice on {sl.device}")
+        t = time.perf_counter()
+        return train(task.params["lr"]), time.perf_counter() - t
+
+    # as phase 14's run: deterministic algorithms, so its losses compare bit for bit
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        pool = MeshSliceExecutorPool(make_mesh((2, 1), ("data", "model"), "cuda"), 2, runner)
+        results = list(pool.submit(assignment, None))
+        flash = launch_counts()["flash_attention"]
+        peak = torch.cuda.max_memory_allocated()
+        if "train" in out:
+            want, src = out["train"]["losses"][:LM_SEARCH_STEPS], "phase 14's first three"
+        else:
+            want, src = train(LM_SEARCH_LRS[0]), "a one-device Trainer's"
+    finally:
+        torch.use_deterministic_algorithms(False)
+    b_s = time.perf_counter() - t0
+    _check(len(results) == 2 and all(r.ok for r in results),
+           "; ".join(f"{r.task.key()} {r.error}" for r in results))
+    _check({r.executor_id for r in results} == {0, 1}, "the two tasks shared a slice")
+    losses = {r.task.params["lr"]: r.model for r in results}
+    _check(all(np.isfinite(v).all() for v in losses.values()), f"losses {losses}")
+    got = losses[LM_SEARCH_LRS[0]]
+    _check(got == want, f"the lr {LM_SEARCH_LRS[0]:g} task's losses {got}, {src} {want}")
+    _check(flash == len(tasks) * LM_SEARCH_STEPS * attn_layers(cfg),
+           f"{flash} flash launches in the pool's run")
+    peak_ref = out["train"]["peak_bytes"] if "train" in out else TRAIN_PEAK_BYTES
+    _check(peak <= LM_SEARCH_PEAK_FACTOR * peak_ref,
+           f"peak {peak / 2**30:.2f} GiB against phase 14's {peak_ref / 2**30:.2f} GiB")
+    print(f"  (b) {cfg.name} at full width and depth ({cfg.n_layers} layers) on 2 logical "
+          f"slices of cuda:0, batch {TRAIN_BATCH} x {TRAIN_SEQ}, {LM_SEARCH_STEPS} AdamW "
+          "steps a task: " + "; ".join(
+              f"slice {r.executor_id} lr {r.task.params['lr']:g} losses "
+              + ", ".join(f"{x:.6f}" for x in r.model) + f" ({r.train_seconds:.1f} s)"
+              for r in results)
+          + f"; lr {LM_SEARCH_LRS[0]:g} bit-equal to {src}; flash launches {flash}; peak "
+          f"memory {peak / 2**30:.2f} GiB (phase 14's {peak_ref / 2**30:.2f}); {b_s:.1f} s",
+          flush=True)
+    _add_lm_launches(out, {"flash_attention": flash})
+
+    # -- (c) GPipe over two gloo ranks sharing cuda:0 -------------------------
+    gc.collect()
+    torch.cuda.empty_cache()      # the two ranks draw their weights beside this process
+    t0 = time.perf_counter()
+    code = _PIPELINE_RANK.format(S=PIPE_STAGES, M=PIPE_MICROBATCHES, B=PIPE_BATCH,
+                                 T=PIPE_SEQ, ARCH=TRAIN_ARCH)
+    src = str(Path(__file__).resolve().parent / "src")
+    texts = run_local_ranks(code, PIPE_STAGES, timeout=150,
+                            env={"PYTHONPATH": src + os.pathsep + os.environ.get("PYTHONPATH", "")})
+    ranks = sorted((json.loads(line[5:]) for t in texts for line in t.splitlines()
+                    if line.startswith("RANK ")), key=lambda r: r["rank"])
+    c_s = time.perf_counter() - t0
+    _check(len(ranks) == PIPE_STAGES, f"{len(ranks)} ranks reported")
+    per_stage = attn_layers(cfg) // PIPE_STAGES
+    for r in ranks:
+        _check(r["finite"] and r["shape"] == [PIPE_BATCH, PIPE_SEQ, cfg.d_model],
+               f"rank {r['rank']}: output {r['shape']}, finite {r['finite']}")
+        _check(r["flash"] == per_stage * PIPE_MICROBATCHES,
+               f"rank {r['rank']} launched flash {r['flash']} times")
+        _check(r["digest"] == ranks[0]["digest"], "the ranks returned different outputs")
+        _check(r["rerun_equal"], f"rank {r['rank']}: a second pipeline call gave other bits")
+        _check(r["holds"] * PIPE_STAGES == r["all_layers"],
+               f"rank {r['rank']} holds {r['holds']} of {r['all_layers']} layer parameters")
+    r0 = ranks[0]
+    _check(r0["bit_equal"], "the pipeline's output differs from the stages applied in order "
+                            "to each microbatch")
+    _check(r0["whole_err"] <= LOGIT_NOISE_FACTOR * r0["noise"],
+           f"the pipeline is {r0['whole_err']:.3g} off one pass over the whole batch, the "
+           f"plain path's bf16 noise is {r0['noise']:.3g}")
+    print(f"  (c) pipeline_apply over {PIPE_STAGES} gloo ranks sharing cuda:0, {per_stage} of "
+          f"{cfg.name}'s {cfg.n_layers} layers a stage (DTensors: each rank holds "
+          f"{r0['holds'] / 1e6:.1f}M of the {r0['all_layers'] / 1e6:.1f}M layer parameters), x "
+          f"({PIPE_BATCH}, {PIPE_SEQ}, {cfg.d_model}) in {PIPE_MICROBATCHES} microbatches: "
+          f"bit-equal to the stages in order on each microbatch, the same bits on every "
+          f"rank; {r0['whole_err']:.4g} off one pass over the whole batch (the plain path's "
+          f"bf16 noise {r0['noise']:.4g}, tol {LOGIT_NOISE_FACTOR:g}x; |y| up to "
+          f"{r0['scale']:.3g}); flash launches " + ", ".join(
+              f"rank {r['rank']} {r['flash']}" for r in ranks)
+          + f"; bubble_fraction({PIPE_STAGES}, {PIPE_MICROBATCHES}) = {r0['bubble']:g}; "
+          "pipeline first call " + ", ".join(f"{r['secs']:.3f}" for r in ranks)
+          + " s, warm " + ", ".join(f"{r['warm']:.4f}" for r in ranks) + " s (the same "
+          f"bits), against {r0['whole_s']:.4f} s for one pass over the whole batch on one rank "
+          "(the other rank idle at a barrier); ranks' wall "
+          + ", ".join(f"{r['wall']:.1f}" for r in ranks) + f" s; {c_s:.1f} s", flush=True)
+    _add_lm_launches(out, {"flash_attention": sum(r["flash"] for r in ranks)})
+    print(f"  phase 17 parts: run_lm {a_s:.1f} s, full-width search {b_s:.1f} s, pipeline "
+          f"{c_s:.1f} s", flush=True)
+    out["lm_search"] = dict(run_lm_s=a_s, search_s=b_s, pipeline_s=c_s, peak_bytes=peak,
+                            losses={str(k): v for k, v in losses.items()},
+                            pipeline_err=r0["whole_err"], pipeline_noise=r0["noise"],
+                            pipeline_warm_s=[r["warm"] for r in ranks],
+                            whole_pass_s=r0["whole_s"])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
     import torch
 
@@ -2686,7 +2994,8 @@ def main() -> int:
             (15, "the rest of the zoo served: whisper, InternVL, Qwen3-MoE, Arctic",
              phase_zoo_serve),
             (16, "the device-mesh layer: training and serving on a mesh, sharded_call over "
-             "ranks, the pod dry-run", phase_mesh)):
+             "ranks, the pod dry-run", phase_mesh),
+            (17, "the LM search on mesh slices and the GPipe pipeline", phase_lm_search)):
         if n not in phases:
             continue
         print(f"[{n}] {title}", flush=True)

@@ -14,7 +14,9 @@ complete:
   executor. It shares the thread pool's scheduling semantics: WAL
   de-dup/resume, per-task error capture, load-balanced queues, and
   ExecutorFailure re-queue onto surviving slices; with ``n_shards > 1`` it
-  schedules on shard groups of slices (DESIGN.md §3.9).
+  schedules on shard groups of slices (DESIGN.md §3.9). Given a
+  ``torch.distributed`` process mesh, each rank runs its own slice's
+  queue and every rank receives every slice's results.
 
 The uniform→native data-format conversion happens HERE (executor-side) —
 never in the Driver (paper §III-B) — and is resolved through the process-wide
@@ -803,27 +805,44 @@ class LocalExecutorPool:
 #: outlive it in the process-wide cache, producing false residency hits
 _POOL_IDS = itertools.count()
 
+def is_process_mesh(mesh) -> bool:
+    """Whether ``mesh`` is a ``torch.distributed`` device mesh (one rank
+    per entry) rather than a :class:`repro_torch.launch.mesh.DeviceMesh`
+    of devices in this process."""
+    return mesh is not None and hasattr(mesh, "get_group")
+
+
 def make_slices(mesh, n_slices: int, axis: str = "data"):
-    """Partition ``mesh`` (a :class:`repro_torch.launch.mesh.DeviceMesh`)
-    into ``n_slices`` submeshes along ``axis``.
+    """Partition ``mesh`` into ``n_slices`` submeshes along ``axis``.
 
     Each slice keeps every other axis intact, so a task placed on a slice
-    could still spread over its devices. Returns a list of DeviceMesh. On
-    one card every device of every slice is the same ``cuda:0``: the slices
-    are logical executors sharing it.
+    can spread over its devices. For a
+    :class:`repro_torch.launch.mesh.DeviceMesh` returns a list of
+    DeviceMesh; on one card every device of every slice is the same
+    ``cuda:0``: the slices are logical executors sharing it. For a
+    ``torch.distributed`` device mesh returns one such mesh a slice, with
+    the same axis names, each with its own process groups: every rank of
+    ``mesh`` must call this, and makes every slice in the same order.
     """
-    from repro_torch.launch.mesh import DeviceMesh
-
-    axis_idx = mesh.axis_names.index(axis)
-    size = mesh.devices.shape[axis_idx]
+    names = tuple(mesh.mesh_dim_names if is_process_mesh(mesh) else mesh.axis_names)
+    grid = mesh.mesh if is_process_mesh(mesh) else mesh.devices
+    axis_idx = names.index(axis)
+    size = grid.shape[axis_idx]
     if size % n_slices != 0:
         raise ValueError(f"axis {axis!r} of size {size} not divisible into {n_slices} slices")
     per = size // n_slices
     slices = []
     for s in range(n_slices):
-        sl = [slice(None)] * mesh.devices.ndim
+        sl = [slice(None)] * grid.ndim
         sl[axis_idx] = slice(s * per, (s + 1) * per)
-        slices.append(DeviceMesh(mesh.devices[tuple(sl)], mesh.axis_names))
+        if is_process_mesh(mesh):
+            from torch.distributed.device_mesh import DeviceMesh as ProcessMesh
+
+            slices.append(ProcessMesh(mesh.device_type, grid[tuple(sl)], mesh_dim_names=names))
+        else:
+            from repro_torch.launch.mesh import DeviceMesh
+
+            slices.append(DeviceMesh(grid[tuple(sl)], names))
     return slices
 
 
@@ -891,6 +910,19 @@ class MeshSliceExecutorPool:
     directly instead of partitioning a mesh — tests and custom partitioners
     use this to exercise the pool without real multi-device state.
 
+    Given a ``torch.distributed`` device ``mesh`` (``launch.mesh.
+    compat_make_mesh``; every rank builds the pool, the same tasks and the
+    same static assignment), each slice is a process mesh of its own ranks
+    and each rank runs only its own slice's queue: a ``task_runner`` gets
+    the slice's mesh and spreads a task over its ranks (tensor parallelism
+    inside the slice). ``submit`` then gathers every slice's results (from
+    each slice's first rank, ``all_gather_object``) and yields them on every
+    rank, slice by slice, once every queue has run. Ranks cannot pull from
+    one shared queue, so the dynamic policies raise; a slice lost to
+    :class:`ExecutorFailure` ends its queue with error results, since no
+    other rank can take its tasks; each rank journals only its own slice's
+    tasks in ``wal``.
+
     With ``n_shards > 1`` (§3.9) the pool bundles consecutive slices into
     :class:`ShardGroup` units of that size and SCHEDULES ON GROUPS: a
     sharded placement is one unit spanning its shard group — one queue,
@@ -919,12 +951,19 @@ class MeshSliceExecutorPool:
         poison_threshold: int | None = 3,
         sleep: Callable[[float], None] = time.sleep,
     ):
+        #: this rank's slice index when the slices are process meshes
+        self._own_slice: int | None = None
         if slices is not None:
             self.slices = list(slices)
         else:
             if mesh is None or n_slices is None:
                 raise ValueError("provide either a mesh + n_slices or explicit slices=")
             self.slices = make_slices(mesh, n_slices, axis=slice_axis)
+            if is_process_mesh(mesh):
+                if n_shards != 1:
+                    raise ValueError("shard groups of process-mesh slices are not supported")
+                self._own_slice = next(i for i, sl in enumerate(self.slices)
+                                       if sl.get_coordinate() is not None)
         self.n_shards = int(n_shards)
         if self.n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {n_shards}")
@@ -1252,6 +1291,9 @@ class MeshSliceExecutorPool:
         """
         self._stragglers = []  # per-submit buffer (see drain_stragglers)
         self._pending_retry = []
+        if self._own_slice is not None:
+            yield from self._deliver(self._run_rank_slice(assignment, data, validate))
+            return
         queues = self._queues(assignment)
         alive = set(range(len(self.slices)))
         stranded: list[TrainTask] = []
@@ -1324,6 +1366,56 @@ class MeshSliceExecutorPool:
                     yield from self._deliver(qres)
                     continue
                 yield from self._deliver(results)
+
+    def _run_rank_slice(self, assignment: Assignment, data,
+                        validate: EvalPlan | None) -> list[TaskResult]:
+        """Run this rank's slice's queue (retries on the same slice), then
+        gather every slice's results from its first rank: every slice's
+        results in slice order, on every rank."""
+        import torch.distributed as dist
+
+        if assignment.policy in _DYNAMIC_POLICIES:
+            raise ValueError(
+                f"policy {assignment.policy!r} pulls from one queue that every slice "
+                "shares; the slices of a process mesh run in separate ranks, each on its "
+                "own static queue (use lpt, random or round_robin)")
+        queues = self._queues(assignment)
+        if len(queues) != len(self.slices):
+            raise ValueError(f"a plan of {len(queues)} queues for {len(self.slices)} slices")
+        eid = self._own_slice
+        sl = self.slices[eid]
+        pending, mine = list(queues[eid]), []
+        while pending:
+            task = pending.pop(0)
+            try:
+                mine.extend(self._execute(eid, task, sl, data, validate))
+            except ExecutorFailure as e:
+                self._dead.add(eid)
+                lost = [task] + pending + self._pending_retry
+                pending, self._pending_retry = [], []
+                for unit in lost:
+                    for m in (unit.tasks if isinstance(unit, FusedBatch) else [unit]):
+                        res = TaskResult(task=m, model=None, train_seconds=0.0,
+                                         executor_id=eid,
+                                         error=f"slice {eid} lost ({e!r}); a process "
+                                               "mesh cannot move its tasks to another "
+                                               "rank's slice")
+                        self._retry.stamp(res)
+                        mine.append(self._emit(res))
+            pending.extend(self._pending_retry)
+            self._pending_retry = []
+        leader = int(sl.mesh.flatten()[0]) == dist.get_rank()
+        gathered: list = [None] * dist.get_world_size()
+        dist.all_gather_object(gathered, (eid, mine if leader else None))
+        out: list[TaskResult] = []
+        for sid, results in sorted((g for g in gathered if g[1] is not None),
+                                   key=lambda g: g[0]):
+            if sid == eid:
+                out.extend(mine)
+                continue
+            for res in results:
+                out.append(self._emit(res))
+        return out
 
     def run(self, assignment: Assignment, data,
             validate: EvalPlan | None = None) -> list[TaskResult]:

@@ -16,26 +16,48 @@ without a card it raises.
 
 ``--shards N`` row-shards the prepared data N ways (DESIGN.md §3.9): the
 shards' row blocks are stacked on the one device and every family trains on
-them through ``compat.sharded_call``. Not ported yet: ``--workload lm``
-(run_lm, the LM search on mesh slices: the next slice, ROADMAP Queue 1
-item 6).
+them through ``compat.sharded_call``.
+
+``--workload lm``: the search space is LM architectures × learning rates
+(the smoke configs), and the executors are MESH SLICES — each task trains
+its config for ``--steps`` steps on its slice. Costs come from the
+analytic profile (parameters × steps). In one process the ``--slices``
+slices are logical executors on ``--device`` (the card, or ``cpu``), each
+task a one-device ``Trainer``; under ``torchrun`` with ``--slices`` ×
+``--model-par`` ranks every slice is a (1, model_par) process mesh and its
+tasks train tensor-parallel over it, rank 0 printing every slice's
+results:
+
+    python -m repro_torch.launch.search --workload lm --device cpu --steps 2
+    torchrun --nproc-per-node 4 -m repro_torch.launch.search --workload lm \
+        --device cpu --slices 2 --model-par 2
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import repro_torch.tabular  # noqa: F401  (registers the estimators)
+from repro_torch import configs
 from repro_torch.core import (
     METRICS,
     AnalyticProfiler,
     GridBuilder,
+    MeshSliceExecutorPool,
     SamplingProfiler,
     SearchSpec,
     Session,
+    TrainTask,
+    schedule,
 )
+from repro_torch.core.executor import is_process_mesh
+from repro_torch.data.pipeline import make_lm_stream
 from repro_torch.data.synthetic import make_higgs_like, make_secom_like
 from repro_torch.device import default_device, set_default_device
+from repro_torch.launch.mesh import make_mesh, make_test_mesh
+from repro_torch.models import count_params, init_params
+from repro_torch.train import Trainer, make_optimizer
 
 
 def paper_search_space(scale: float = 1.0):
@@ -192,6 +214,82 @@ def run_tabular(args, *, spaces=None, backend=None) -> Session:
     return session
 
 
+def lm_search_tasks(archs: str | None, steps: int) -> list[TrainTask]:
+    """The LM grid, (architecture × lr {1e-3, 3e-3}), each task costed
+    analytically as its smoke config's parameter count × ``steps``
+    (counted on the ``meta`` device: no weights are drawn)."""
+    spaces = [GridBuilder(arch).add_grid("lr", [1e-3, 3e-3]).build()
+              for arch in (archs.split(",") if archs else
+                           ["qwen2_1_5b", "tinyllama_1_1b", "gemma_2b"])]
+    tasks = []
+    for space in spaces:
+        cfg = configs.get_smoke_config(space.estimator)
+        cost = count_params(init_params(cfg, device="meta")) * steps
+        for cfg_params in space.configs:
+            tasks.append(TrainTask(task_id=len(tasks), estimator=space.estimator,
+                                   params=dict(cfg_params), cost=float(cost)))
+    return tasks
+
+
+def lm_task_runner(steps: int):
+    """``task_runner(task, slice, data) -> (final loss, seconds)``: the
+    task's smoke config trained ``steps`` steps with AdamW at its lr, on a
+    batch of 4 × 32 tokens of seed 0; a one-device ``Trainer`` on a logical
+    slice's device, or a ``Trainer`` over a process-mesh slice."""
+    def run(task: TrainTask, sl, _data):
+        cfg = configs.get_smoke_config(task.estimator)
+        where = dict(mesh=sl) if is_process_mesh(sl) else dict(device=sl.device)
+        stream = make_lm_stream(4, 32, cfg.vocab, **where)
+        tr = Trainer(cfg, make_optimizer("adamw", lr=task.params["lr"]), stream, **where)
+        t0 = time.perf_counter()
+        try:
+            m = tr.run(steps)
+        finally:
+            stream.close()
+        return m.history[-1]["loss"], time.perf_counter() - t0
+
+    return run
+
+
+def lm_search_mesh(slices: int, model_par: int, device):
+    """``(mesh, say)``: the mesh the LM search's slices are cut from, and
+    ``print`` on rank 0 (a no-op elsewhere). Under ``torchrun``
+    (``WORLD_SIZE`` > 1) the (slices, model_par) process mesh, each slice
+    tensor-parallel over its ``model`` ranks; in one process the logical
+    (slices, 1) mesh of ``device``, where ``model_par`` > 1 raises."""
+    if int(os.environ.get("WORLD_SIZE", 1)) > 1:
+        mesh = make_test_mesh(data=slices, model=model_par, device=device)
+        return mesh, print if mesh.get_rank() == 0 else (lambda *a, **k: None)
+    if model_par > 1:
+        raise RuntimeError(
+            f"--model-par {model_par} spreads each task over ranks: run it under "
+            f"torchrun --nproc-per-node {slices * model_par}")
+    set_default_device(device)
+    return make_mesh((slices, 1), ("data", "model"), device), print
+
+
+def run_lm(args) -> list:
+    """The LM search on mesh-slice executors; prints the reference's lines
+    (rank 0 alone under ``torchrun``) and returns every slice's
+    ``TaskResult``s."""
+    mesh, say = lm_search_mesh(args.slices, args.model_par,
+                               default_device(args.device or "cuda"))
+    tasks = lm_search_tasks(args.archs, args.steps)
+    assignment = schedule(tasks, args.slices, policy=args.policy)
+    say(f"{len(tasks)} LM tasks over {args.slices} mesh slices "
+        f"(estimated makespan {assignment.estimated_makespan:.2e} units)")
+    pool = MeshSliceExecutorPool(mesh, args.slices, lm_task_runner(args.steps))
+    results = []
+    for r in pool.submit(assignment, None):     # streams slice by slice
+        status = f"loss={r.model:.4f}" if r.ok else f"ERROR {r.error}"
+        say(f"  slice {r.executor_id}: {r.task.key():40s} {status}")
+        results.append(r)
+    best = min((r for r in results if r.ok), default=None, key=lambda r: r.model)
+    if best is not None:
+        say(f"best after {args.steps} steps: {best.task.key()} loss={best.model:.4f}")
+    return results
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--workload", default="tabular", choices=("tabular", "lm"))
@@ -253,7 +351,7 @@ def parse_args(argv=None):
                    help="print each task result as it streams in")
     p.add_argument("--device", default=None,
                    help="torch device (default: the card; 'cpu' to run on the CPU)")
-    # lm workload (not ported yet; parsed so the reference's command lines parse)
+    # lm workload
     p.add_argument("--slices", type=int, default=2)
     p.add_argument("--model-par", type=int, default=1)
     p.add_argument("--archs", default=None)
@@ -268,11 +366,15 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.workload == "lm":
-        raise NotImplementedError(
-            "--workload lm (run_lm, the LM search on mesh slices) waits for the "
-            "next slice of the port (ROADMAP Queue 1 item 6, its part still open)")
-    run_tabular(args)
+    if args.workload == "tabular":
+        run_tabular(args)
+        return 0
+    run_lm(args)
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
     return 0
 
 

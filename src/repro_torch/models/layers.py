@@ -18,6 +18,8 @@ __all__ = [
     "rmsnorm",
     "layernorm",
     "dense",
+    "mesh_matmul",
+    "multi_rank",
     "ffn_apply",
     "init_ffn",
     "rope",
@@ -129,12 +131,70 @@ def gathered(w: torch.Tensor) -> torch.Tensor:
     return w if list(w.placements) == pls else w.redistribute(w.device_mesh, pls)
 
 
+def _reduced(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor with its partial sums reduced (an all-reduce in t's dtype)."""
+    from torch.distributed.tensor import Replicate
+
+    pls = [Replicate() if p.is_partial() else p for p in t.placements]
+    return t if list(t.placements) == pls else t.redistribute(t.device_mesh, pls)
+
+
+class _MeshProduct(torch.autograd.Function):
+    """x @ w for DTensors on a mesh of more than one rank, forward and
+    backward, as the JAX package's ``preferred_element_type=float32``
+    product is partitioned: float32 products of the operands' values, each
+    rank's partial sums all-reduced in float32, one rounding to ``out_dtype``
+    (the gradients: to their operand's dtype) after the reduction. Left to
+    DTensor, a bf16 product rounds each rank's partial sum to bf16 before
+    the all-reduce (the row-parallel output, the column-parallel input
+    gradient, the data-parallel weight gradient), and a float32 product of
+    upcast operands rounds its input gradient's partial sums when the
+    upcast's backward casts them down. The operands are saved in their own
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w, out_dtype):
+        ctx.save_for_backward(x, w)
+        return _reduced(torch.matmul(x.float(), w.float())).to(out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.float()
+        gx = _reduced(torch.matmul(g, w.float().T)).to(x.dtype)
+        gw = torch.matmul(x.float().reshape(-1, x.shape[-1]).T, g.reshape(-1, g.shape[-1]))
+        return gx, _reduced(gw).to(w.dtype), None
+
+
+def multi_rank(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a DTensor on a mesh of more than one rank."""
+    return getattr(t, "device_mesh", None) is not None and t.device_mesh.size() > 1
+
+
+def mesh_matmul(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """x @ w for DTensors on a mesh of more than one rank, every sum in
+    float32 and the result rounded once to ``out_dtype``
+    (:class:`_MeshProduct`)."""
+    return _MeshProduct.apply(x, w, out_dtype)
+
+
 def dense(w: torch.Tensor, x: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
     """x @ w in x's dtype: the weight is cast to it on every call (float32
-    parameters become bf16 operands, as the JAX package does), the product
-    accumulates in float32 and is rounded to x's dtype once. On a mesh an
-    FSDP-sharded weight is gathered first (:func:`gathered`)."""
-    y = torch.matmul(x, gathered(w).to(x.dtype))
+    parameters become bf16 operands, as the JAX package does), the products
+    and their sums are float32 and the result is rounded to x's dtype once.
+    On the card that is cuBLAS's bf16 product; on the CPU it is a float32
+    product of the operands' values, since the CPU's bf16 product sums in
+    another order than its float32 one and a mesh's products are float32
+    (:func:`mesh_matmul`): so a CPU mesh run matches one CPU device. On a
+    mesh an FSDP-sharded weight is gathered first (:func:`gathered`), and on
+    a mesh of more than one rank the cross-rank sums are float32 too."""
+    w = gathered(w).to(x.dtype)
+    if multi_rank(w):
+        y = mesh_matmul(x, w, x.dtype)
+    elif x.device.type == "cpu":
+        y = torch.matmul(x.float(), w.float()).to(x.dtype)
+    else:
+        y = torch.matmul(x, w)
     if b is not None:
         y = y + b.to(y.dtype)
     return y

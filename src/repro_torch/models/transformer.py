@@ -51,7 +51,7 @@ from repro_torch.models.attention import (
     init_kv_cache,
 )
 from repro_torch.models.layers import Init, ParamTree, ffn_apply, gathered, init_ffn, \
-    init_norm, layernorm, rmsnorm
+    init_norm, layernorm, mesh_matmul, multi_rank, rmsnorm
 from repro_torch.models.moe import init_moe, moe_apply
 
 __all__ = ["LayerSpec", "ArchConfig", "LMParams", "init_params", "params_from_reference",
@@ -598,8 +598,11 @@ def _unembed(cfg: ArchConfig, params) -> torch.Tensor:
 def _project(cfg: ArchConfig, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(..., d) final hidden → (..., vocab) float32 logits: the unembedding
     ``w`` is cast to the compute dtype and the product accumulates in
-    float32, as the JAX package's ``preferred_element_type=float32`` does."""
-    logits = torch.matmul(x.float(), w.to(x.dtype).float())
+    float32, as the JAX package's ``preferred_element_type=float32`` does
+    (on a mesh of more than one rank, its cross-rank sums too)."""
+    w = w.to(x.dtype)
+    logits = (mesh_matmul(x, w, torch.float32) if multi_rank(w)
+              else torch.matmul(x.float(), w.float()))
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits

@@ -146,19 +146,19 @@ def test_full_configs_are_the_assigned_ones():
 
 
 def test_unported_pieces_raise():
-    """What is still unported raises: the LM search on mesh slices (ROADMAP
-    Queue 1 item 6); a mesh larger than the launch's ranks (training over
-    a mesh runs under torchrun, tests/test_torch_distributed_mesh.py) and
-    an unknown architecture raise too. Every architecture of the JAX
-    package is ported (tests/test_torch_zoo_configs.py)."""
+    """Every module of the JAX package is ported: the LM search on mesh
+    slices runs on the CPU (tests/test_torch_lm_search.py). A mesh larger
+    than the launch's ranks (training over a mesh runs under torchrun,
+    tests/test_torch_distributed_mesh.py) and an unknown architecture
+    raise. Every architecture of the JAX package is ported
+    (tests/test_torch_zoo_configs.py)."""
     from repro_torch.launch.search import main as search
     from repro_torch.launch.train import main as train
 
     with pytest.raises(RuntimeError, match="needs 2 ranks"):
         train(["--arch", "qwen3-moe-235b-a22b", "--smoke", "--device", "cpu", "--steps", "1",
                "--mesh", "2,1"])
-    with pytest.raises(NotImplementedError, match="--workload lm"):
-        search(["--workload", "lm", "--device", "cpu"])
+    assert search(["--workload", "lm", "--device", "cpu", "--steps", "1"]) == 0
     with pytest.raises(KeyError):
         configs.get_config("no-such-model")
     assert models.init_params(configs.get_smoke_config("qwen3-moe-235b-a22b")).layers[0]["moe"]

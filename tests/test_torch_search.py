@@ -141,9 +141,10 @@ def test_cli_paper_space_matches_reference():
 
 
 def test_cli_refuses_what_is_not_ported_and_a_missing_card():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        search.main(["--workload", "lm"])
+    """Both workloads default to the card, and raise where it is absent."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device exists")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        search.main(["--workload", "lm"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         search.main(["--rows", "100", "--scale", "0.1"])
