@@ -122,7 +122,13 @@ or any phase fails. Phases:
    rank holding its own stage as DTensors), x of (8, 512, 2048) embeddings
    in M = 4 microbatches: the output bit-equal to both stages applied in
    order to each microbatch on one rank, within the plain path's bf16
-   noise of one pass over the whole batch, 44 flash launches a rank.
+   noise of one pass over the whole batch, 44 flash launches a rank; then
+   its backward, the same call under grad mode with the loss
+   ``sum(y.float() * c)`` on every rank: every rank's gradients finite,
+   x's the same bits on both ranks, a second call the same bits, 44 flash
+   launches a rank, and rank 0's gradients (stage 0's leaves and x) each
+   within 2x the plain path's bf16 noise of autograd through the stages
+   in order on each microbatch.
 
 Phase 2 also holds the sharded level (the shards' partial histograms in
 one histogram launch, summed in shard order, scanned by ``split_scan``)
@@ -519,10 +525,22 @@ def _sharded_cells(torch, gen, out: dict) -> None:
                     ms = _time_ms(torch, lambda: run(*blocks))
                     base_ms = _time_ms(torch, lambda: ops.level_split(
                         bins, g, h, node, n_bins=nb, parent_hist=ph, **kw))
+                    # every row's bins, g, h, node id and valid flag read; the
+                    # S partial histograms (of N/2 smaller children by
+                    # subtraction) written and read, the parent's read; the
+                    # level's histogram and decisions written
+                    part = (nn // 2 if ph is not None else nn) * F_KERNEL * nb
+                    n_bytes = (R_KERNEL * (F_KERNEL * 4 + 13) + 2 * s * part * 8
+                               + (part * 8 if ph is not None else 0) + nn * F_KERNEL * nb * 8
+                               + nn * 12)
+                    bound, by = _bound_ms(n_bytes, 2 * R_KERNEL * F_KERNEL + 2 * s * part
+                                          + 10 * nn * F_KERNEL * nb)
                     rows.append(dict(B=nb, S=s, mode=mode, ms=ms, unsharded_ms=base_ms,
-                                     max_abs_err=err, gain_gap=gap))
+                                     max_abs_err=err, gain_gap=gap, bound_ms=bound,
+                                     bound_by=by))
                     print(f"  sharded level {label} N={nn}: {ms:.3f} ms (unsharded level "
-                          f"kernel {base_ms:.3f} ms), launches {launches} a level, "
+                          f"kernel {base_ms:.3f} ms, bound {bound:.4f} ms ({by})), "
+                          f"launches {launches} a level, "
                           f"max|err| {err:.3g}, gain gap {gap:.3g} (tol {gtol:.3g}, "
                           f"legality flips {flips}); integer g/h bit-equal", flush=True)
     # the split scan alone, at the last level of a depth-6 GBDT (N = 32)
@@ -2685,6 +2703,7 @@ from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.launch.mesh import init_process_group
 from repro_torch.models import transformer as tm
 from repro_torch.models.layers import Init
+from repro_torch.train.optimizer import tree_leaves, tree_map
 S, M, B, T, ARCH = {S}, {M}, {B}, {T}, {ARCH!r}
 t_start = time.perf_counter()
 init_process_group("gloo")
@@ -2755,6 +2774,37 @@ rep = dict(rank=rank, flash=flash, secs=secs, warm=warm, rerun_equal=bool(torch.
            finite=bool(torch.isfinite(y).all()),
            digest=hashlib.sha1(y.view(torch.int16).cpu().numpy().tobytes()).hexdigest(),
            holds=holds, all_layers=all_layers)
+
+# the backward: the same call under grad mode and a fixed projection of y
+# as the loss, which every rank computes; twice (the second warm, and the
+# same bits expected). The gradients: this rank's stage block of every
+# DTensor leaf, then x's
+dt = tree_leaves(stage_params)
+for leaf in dt:
+    leaf.requires_grad_()
+c = torch.randn(y.shape, device="cuda", generator=torch.Generator(device="cuda").manual_seed(19))
+def pipeline_grads():
+    for leaf in dt:
+        leaf.grad = None
+    xg = x.detach().requires_grad_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = (pipeline_apply(stage_fn, stage_params, xg, mesh, n_microbatches=M).float() * c).sum()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    return [leaf.grad.to_local()[0] for leaf in dt] + [xg.grad], (t1 - t0, time.perf_counter() - t1)
+reset_launch_counts()
+grads, first_s = pipeline_grads()
+flash_grad = launch_counts()["flash_attention"]
+again, warm_s = pipeline_grads()
+rep.update(grad_first_s=first_s, grad_warm_s=warm_s, flash_grad=flash_grad,
+           grad_finite=all(bool(torch.isfinite(g).all()) for g in grads),
+           grad_rerun_equal=all(bool(torch.equal(g, h)) for g, h in zip(grads, again)),
+           x_grad_digest=hashlib.sha1(grads[-1].view(torch.int16).cpu().numpy().tobytes())
+           .hexdigest())
+del again
 if rank == 0:
     with torch.no_grad():
         seq = torch.cat([stage_fn(stages[1], stage_fn(stages[0], xm))
@@ -2772,6 +2822,27 @@ if rank == 0:
                whole_err=float((y.float() - whole.float()).abs().max()),
                noise=float((plain.float() - plain32).abs().max()),
                scale=float(plain32.abs().max()), bubble=bubble_fraction(S, M), whole_s=whole_s)
+    del seq, whole, plain, plain32
+
+    def in_order_grads(cfg, x, force):
+        # autograd through the stages in order, one backward a microbatch:
+        # stage 0's leaves' gradients, then x's
+        p = [tree_map(lambda t: t.detach().requires_grad_(), st) for st in stages]
+        xr = x.detach().requires_grad_()
+        for xm, cm in zip(xr.reshape((M, B // M) + tuple(x.shape[1:])),
+                          c.reshape((M, B // M) + tuple(c.shape[1:]))):
+            (stage_fn(p[1], stage_fn(p[0], xm, cfg, force), cfg, force).float() * cm).sum().backward()
+        return [t.grad for t in tree_leaves(p[0])] + [xr.grad]
+
+    def max_errs(a, b):
+        return [float((g.float() - h.float()).abs().max()) for g, h in zip(a, b)]
+
+    want = in_order_grads(cfg, x, None)
+    rep["grad_errs"] = max_errs(grads, want)
+    del want
+    plain = in_order_grads(cfg, x, "ref")
+    rep["grad_noises"] = max_errs(plain, in_order_grads(cfg32, x.float(), "ref"))
+    rep["grad_scale"] = max(float(g.float().abs().max()) for g in plain)
 rep["wall"] = time.perf_counter() - t_start
 print("RANK " + json.dumps(rep), flush=True)
 dist.barrier()
@@ -2916,12 +2987,28 @@ def phase_lm_search(torch, out: dict) -> None:
         _check(r["rerun_equal"], f"rank {r['rank']}: a second pipeline call gave other bits")
         _check(r["holds"] * PIPE_STAGES == r["all_layers"],
                f"rank {r['rank']} holds {r['holds']} of {r['all_layers']} layer parameters")
+        _check(r["grad_finite"], f"rank {r['rank']}: a gradient is not finite")
+        _check(r["grad_rerun_equal"], f"rank {r['rank']}: a second backward gave other bits")
+        _check(r["flash_grad"] == per_stage * PIPE_MICROBATCHES,
+               f"rank {r['rank']} launched flash {r['flash_grad']} times under grad mode")
+        _check(r["x_grad_digest"] == ranks[0]["x_grad_digest"], "the ranks' x gradients differ")
     r0 = ranks[0]
     _check(r0["bit_equal"], "the pipeline's output differs from the stages applied in order "
                             "to each microbatch")
     _check(r0["whole_err"] <= LOGIT_NOISE_FACTOR * r0["noise"],
            f"the pipeline is {r0['whole_err']:.3g} off one pass over the whole batch, the "
            f"plain path's bf16 noise is {r0['noise']:.3g}")
+    # rank 0's gradients (stage 0's leaves, then x's), each against autograd
+    # through the stages in order, within the factor of the plain path's
+    # bf16 noise of the same gradient
+    errs, noises = r0["grad_errs"], r0["grad_noises"]
+    bad = [i for i, (e, n) in enumerate(zip(errs, noises)) if not e <= LOGIT_NOISE_FACTOR * n]
+    _check(len(errs) == len(noises) > 1 and not bad,
+           f"{len(bad)} of rank 0's {len(errs)} gradients off the stages in order by more than "
+           f"{LOGIT_NOISE_FACTOR:g}x the plain path's bf16 noise, the first "
+           + (f"#{bad[0]}: {errs[bad[0]]:.3g} against {noises[bad[0]]:.3g}" if bad else "none"))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"  (c) pipeline_apply over {PIPE_STAGES} gloo ranks sharing cuda:0, {per_stage} of "
           f"{cfg.name}'s {cfg.n_layers} layers a stage (DTensors: each rank holds "
           f"{r0['holds'] / 1e6:.1f}M of the {r0['all_layers'] / 1e6:.1f}M layer parameters), x "
@@ -2937,14 +3024,30 @@ def phase_lm_search(torch, out: dict) -> None:
           f"bits), against {r0['whole_s']:.4f} s for one pass over the whole batch on one rank "
           "(the other rank idle at a barrier); ranks' wall "
           + ", ".join(f"{r['wall']:.1f}" for r in ranks) + f" s; {c_s:.1f} s", flush=True)
-    _add_lm_launches(out, {"flash_attention": sum(r["flash"] for r in ranks)})
+    ratio = max(e / n for e, n in zip(errs, noises) if n > 0)
+    print(f"  (c) backward (loss sum(y.float() * c), every rank): rank 0's {len(errs)} gradients "
+          f"(stage 0's {len(errs) - 1} leaves and x) at most {max(errs):.4g} off autograd through "
+          f"the stages in order on each microbatch (x's {errs[-1]:.4g}), {ratio:.3g}x of their "
+          f"plain path's bf16 noise "
+          f"at most (tol {LOGIT_NOISE_FACTOR:g}x; the noise up to {max(noises):.4g}, |grad| up to "
+          f"{r0['grad_scale']:.3g}); finite on every rank; x's gradient the same bits on every "
+          f"rank; a second call the same bits; flash launches under grad mode " + ", ".join(
+              f"rank {r['rank']} {r['flash_grad']}" for r in ranks)
+          + "; forward + backward first call " + ", ".join(
+              f"{r['grad_first_s'][0]:.3f} + {r['grad_first_s'][1]:.3f}" for r in ranks)
+          + " s, warm " + ", ".join(
+              f"{r['grad_warm_s'][0]:.4f} + {r['grad_warm_s'][1]:.4f}" for r in ranks)
+          + f" s ({smi})", flush=True)
+    _add_lm_launches(out, {"flash_attention": sum(r["flash"] + r["flash_grad"] for r in ranks)})
     print(f"  phase 17 parts: run_lm {a_s:.1f} s, full-width search {b_s:.1f} s, pipeline "
           f"{c_s:.1f} s", flush=True)
     out["lm_search"] = dict(run_lm_s=a_s, search_s=b_s, pipeline_s=c_s, peak_bytes=peak,
                             losses={str(k): v for k, v in losses.items()},
                             pipeline_err=r0["whole_err"], pipeline_noise=r0["noise"],
                             pipeline_warm_s=[r["warm"] for r in ranks],
-                            whole_pass_s=r0["whole_s"])
+                            whole_pass_s=r0["whole_s"],
+                            pipeline_grad_err=max(errs), pipeline_grad_noise=max(noises),
+                            pipeline_grad_warm_s=[r["grad_warm_s"] for r in ranks])
 
 
 def main() -> int:
