@@ -90,7 +90,9 @@ or any phase fails. Phases:
    per-token reference, the share of slots dropped), Arctic-480B's smoke
    config served, and one full-width Arctic layer (13.61B bfloat16
    parameters drawn on the card) on 4 x 1024 tokens, its MoE output
-   against the per-token reference;
+   against the per-token reference; first, flash timed at the zoo's
+   prefill shapes and at TinyLlama-1.1B's (j), beside SDPA (with
+   ``is_causal=True`` where the mask is exactly causal over Tq == Tk);
 16. the device-mesh layer: the JAX package's small dry-run cells traced
    at the 32 x 8 production mesh (256 ranks of a ``fake`` process group,
    under ``FakeTensorMode``) and TinyLlama's train cell at 2 x 32 x 8 (512),
@@ -1447,18 +1449,25 @@ def _attention_case(torch, gen, label, b, hq, hkv, tq, tk, d, dtype, *, window=N
     mask = k_pos <= q_pos if causal else torch.ones((tq, tk), dtype=torch.bool, device="cuda")
     if window is not None:
         mask &= q_pos - k_pos < window
-    library_ms = None
+    library_ms, library = None, "none"
     if cap is None:       # no PyTorch call applies a tanh softcap
         full = not causal and window is None
         library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=None if full else mask, enable_gqa=hq != hkv))
+        library = f"{library_ms:.3f} ms"
+        if causal and window is None and tq == tk:
+            # the call a user makes for this mask; an explicit boolean mask
+            # can take SDPA off its fastest path
+            mask_ms = library_ms
+            library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=hq != hkv))
+            library = f"{library_ms:.3f} ms (is_causal; {mask_ms:.3f} ms with the explicit mask)"
     n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     n_flops = 4.0 * b * hq * int(mask.sum()) * d        # QK^T and PV on visible pairs
     peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 else PEAK_F32_FLOP_PER_S
     bound, by = _bound_ms(n_bytes, n_flops, peak)
     print(f"  attention {label}: max|err| {err:.3g} ({tol}), bit-identical reruns, "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, library "
-          f"{'none' if library_ms is None else f'{library_ms:.3f} ms'}, bound "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, library {library}, bound "
           f"{bound:.4f} ms ({by})", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bound, bound_by=by,
                 library_ms=library_ms)
@@ -2149,7 +2158,11 @@ ZOO_ATTENTION = (("(e) whisper encoder B=4 H=16 T=1500 D=64 bidirectional", 4, 1
                   True),
                  ("(h) Qwen3-MoE B=4 Hq=64 Hkv=4 T=4096 D=128", 4, 64, 4, 4096, 4096, 128,
                   True),
-                 ("(i) Arctic B=4 Hq=56 Hkv=8 T=1024 D=128", 4, 56, 8, 1024, 1024, 128, True))
+                 ("(i) Arctic B=4 Hq=56 Hkv=8 T=1024 D=128", 4, 56, 8, 1024, 1024, 128, True),
+                 # TinyLlama-1.1B's attention: the port's most-launched flash shape
+                 # (phases 13, 14, 16 and 17)
+                 ("(j) TinyLlama-1.1B B=4 Hq=32 Hkv=4 T=2048 D=64", 4, 32, 4, 2048, 2048, 64,
+                  True))
 # Arctic-480B: its smoke config served (the dense residual end to end) and
 # one full-width layer (13.61B bfloat16 parameters, drawn on the card) on
 # ARCTIC_BATCH x ARCTIC_TOKENS tokens

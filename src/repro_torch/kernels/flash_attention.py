@@ -1,10 +1,10 @@
 """Flash attention as a hand-written CUDA kernel for Hopper.
 
 The port of the JAX package's ``kernels/flash_attention.py``
-(``flash_attention``). The kernels, one for bfloat16 on the tensor cores
-and one for float32, are in ``csrc/flash_attention.cu`` (its header says
-what bounds them and how the work is laid out); this module holds their
-ctypes wrapper. Oracle: :func:`repro_torch.kernels.ref.attention_ref`.
+(``flash_attention``). The kernels (two for bfloat16 on the tensor cores,
+one for float32) are in ``csrc/flash_attention.cu``, whose header says
+which runs when, what bounds them and how the work is laid out; this module
+holds their ctypes wrapper. Oracle: :func:`repro_torch.kernels.ref.attention_ref`.
 Dispatch: ``ops.attention``.
 """
 from __future__ import annotations
@@ -25,13 +25,22 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None,
     dtype, float32 or bfloat16, Hq a multiple of Hkv, D ≤ 256. Any Tq and
     Tk: the queries sit at the last Tq of the Tk positions. A row that sees
     no key gives 0 (the oracle gives NaN there). Statistics and accumulator
-    are float32; the result has q's dtype. The dtype picks the kernel, and
-    both count as one launch here:
+    are float32; the result has q's dtype. One of three kernels runs, and
+    each counts as one launch here:
 
-    * bfloat16: ``flash_fwd_bf16``, whose products run on the tensor cores
-      (bf16 × bf16 into float32); the probabilities P enter the P·V product
-      as a pair of bf16 terms, P_hi + P_lo, which keeps about 16 bits of P;
+    * bfloat16 with D % 8 == 0 and every tensor 16-byte aligned:
+      ``flash_fwd_hopper``, TMA loads and ``wgmma`` products, D padded to
+      64, 128 or 256 by the tensor maps' zero fill;
+    * other bfloat16 (D % 8 != 0, or an offset view TMA cannot address):
+      ``flash_fwd_bf16``, ``mma.sync`` products on tiles the threads load;
     * float32: ``flash_fwd<float>``, float32 products on the CUDA cores.
+
+    The bf16 kernels take the probabilities P into the P·V product as a
+    pair of bf16 terms, P_hi + P_lo, which keeps about 16 bits of P. A row's
+    result does not depend on B, the head count or the card's SM count, and
+    two calls give the same bits. A tensor map the driver will not encode
+    and a launch the card refuses raise; nothing falls back to another
+    kernel or to the plain version.
     """
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("q, k and v must be (batch, heads, seq, head_dim)")

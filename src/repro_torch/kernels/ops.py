@@ -213,10 +213,12 @@ def attention(q, k, v, *, causal=True, window=None, scale=None,
     inputs the kernel multiplies on the tensor cores, bf16 × bf16 into
     float32 (exact products), and takes P into the P·V product as two bf16
     terms, P_hi + P_lo, about 16 bits of P where ``matmul_dtype="input"``
-    would round it to 8; for float32 inputs it multiplies in float32. The
-    JAX package's ``block_q``/``block_k`` tiling arguments have no
-    counterpart here: the kernel's tiles are fixed and it takes any
-    sequence length."""
+    would round it to 8; for float32 inputs it multiplies in float32. For
+    bf16 with a head_dim that is a multiple of 8 the Hopper kernel runs
+    (TMA loads, ``wgmma``), else the unaligned one; see
+    ``flash_attention_cuda``. The JAX package's ``block_q``/``block_k``
+    tiling arguments have no counterpart here: the kernel's tiles are fixed
+    and it takes any sequence length."""
     if _is_dtensor(q):
         h, hkv = q.shape[1], k.shape[1]
         split = None if head_gather_needed(h, hkv, _tp(q)) else hkv

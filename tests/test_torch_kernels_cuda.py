@@ -1053,3 +1053,87 @@ def test_cuda_moe_apply_matches_the_cpu(cuda):
     got = moe_apply(pc, x.to(cuda), top_k=2, capacity_factor=0.5)
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
     assert torch.equal(got, moe_apply(pc, x.to(cuda), top_k=2, capacity_factor=0.5))
+
+
+# ---------------------------------------------------------------------------
+# the Hopper bf16 flash kernel (flash_fwd_hopper: TMA loads, wgmma)
+# ---------------------------------------------------------------------------
+
+# every Tq and Tk of {1, 63, 64, 65, 127, 128, 129, 1000}, each around a tile
+# edge (64- and 128-key tiles, 64-row warpgroups), Tq below, at and above Tk
+HOPPER_T = [(1, 1), (1, 1000), (63, 63), (63, 129), (64, 64), (65, 128), (127, 127),
+            (128, 65), (129, 129), (1000, 1000), (1000, 63), (129, 1)]
+HOPPER_MASKS = {"causal": dict(causal=True), "bidirectional": dict(causal=False),
+                "window": dict(causal=True, window=70),
+                "softcap": dict(causal=True, logit_softcap=30.0)}
+
+
+def _kernel_names(fn):
+    """Names of the CUDA kernels ``fn()`` launches, from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events() if e.device_type.name == "CUDA"}
+
+
+def _held_with_dead_rows(got, want):
+    """Rows that see no key (NaN in the oracle) are 0; every other row within
+    one bf16 ulp of its own scale (``_bf16_row_close``)."""
+    dead = torch.isnan(want).all(dim=-1)
+    assert bool((got[dead] == 0).all())
+    _bf16_row_close(got[~dead], want[~dead])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", sorted(HOPPER_MASKS))
+@pytest.mark.parametrize("group", [1, 2, 8, 16])
+@pytest.mark.parametrize("d", [8, 64, 72, 128, 256])
+def test_cuda_flash_hopper_vs_plain(cuda, d, group, mask):
+    """Every Tq/Tk pair of HOPPER_T at this head_dim (D padded to 64, 128 or
+    256), GQA group and mask: within one bf16 ulp a row of the plain version,
+    rows without a key 0, a rerun bit-identical."""
+    kw = HOPPER_MASKS[mask]
+    for tq, tk in HOPPER_T:
+        q, k, v = _lm(40 + tq + tk, (2, 2 * group, tq, d), (2, 2, tk, d), (2, 2, tk, d),
+                      device=cuda, dtype=torch.bfloat16)
+        got = ops.attention(q, k, v, force="kernel", **kw)
+        _held_with_dead_rows(got, ref.attention_ref(q, k, v, **kw))
+        assert torch.equal(got, ops.attention(q, k, v, force="kernel", **kw)), (tq, tk)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_routes_by_head_dim_and_alignment(cuda):
+    """D % 8 == 0 on aligned tensors runs flash_fwd_hopper; D = 33, and a
+    view whose rows start off a 16-byte boundary, run the unaligned kernel:
+    each right, each counted as one flash launch."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    q, k, v = _lm(50, (2, 4, 200, 64), (2, 2, 200, 64), (2, 2, 200, 64), device=cuda,
+                  dtype=torch.bfloat16)
+    q33, k33, v33 = (t[..., :33].contiguous() for t in (q, k, v))
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    q_off = flat[1:].view(q.shape)                 # contiguous, 2 bytes off alignment
+    q_off.copy_(q)
+    for args, kernel in (((q, k, v), "flash_fwd_hopper"), ((q33, k33, v33), "flash_fwd_bf16"),
+                         ((q_off, k, v), "flash_fwd_bf16")):
+        reset_launch_counts(["flash_attention"])
+        names = _kernel_names(lambda: ops.attention(*args, force="kernel"))
+        assert any(kernel in n for n in names), (kernel, names)
+        assert launch_counts(["flash_attention"]) == {"flash_attention": 1}
+        _held_with_dead_rows(ops.attention(*args, force="kernel"), ref.attention_ref(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,hq,hkv,t", [(64, 16, 2, 1000), (128, 8, 2, 700), (256, 4, 1, 300)])
+def test_cuda_flash_hopper_batch_invariant(cuda, d, hq, hkv, t):
+    """A row's output is bit-equal launched at B = 4 and at B = 1."""
+    q, k, v = _lm(51, (4, hq, t, d), (4, hkv, t, d), (4, hkv, t, d), device=cuda,
+                  dtype=torch.bfloat16)
+    for kw in (dict(causal=True), dict(causal=False), dict(causal=True, window=100)):
+        whole = ops.attention(q, k, v, force="kernel", **kw)
+        for i in range(4):
+            one = ops.attention(q[i:i + 1].contiguous(), k[i:i + 1].contiguous(),
+                                v[i:i + 1].contiguous(), force="kernel", **kw)
+            assert torch.equal(one[0], whole[i]), (kw, i)

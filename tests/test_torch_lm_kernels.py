@@ -309,6 +309,105 @@ def test_rwkv6_column_groups_match_reference(b, h, t, dk, dv, cols, decay):
     _close(s, sr, 2e-5)
 
 
+# The decomposition of csrc/flash_attention.cu's flash_fwd_hopper, written
+# out in plain PyTorch: 64-row query groups (one warpgroup each, in blocks
+# of `block_rows`), K/V tiles of 128 keys at DMAX 128 and 64 otherwise, the
+# online softmax with the per-tile rescale (scores raw and the scale in the
+# exponent when there is no softcap), and P entering P V as bf16 P_hi + P_lo,
+# the bf16 products exact in float32 and summed in float32. `own_tiles`:
+# each group visits only the tiles its rows can see (the kernel); else every
+# tile its block's rows can see, which must change no bit of a row (the
+# kernel's batch invariance: how many rows a block holds decides which tiles
+# it visits). Held to the JAX package's Pallas flash_attention (interpret
+# mode) and to attention_ref at this file's bf16 tolerance, and in float32,
+# before the output's bf16 rounding, within 1e-4 of attention_ref on the same
+# bf16 values (P to about 16 bits: 2**-16 of each weight).
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _flash_hopper_decomposition(q, k, v, *, causal, window, softcap, block_rows, own_tiles):
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    dmax = 64 if d <= 64 else 128 if d <= 128 else 256
+    bk = 128 if dmax == 128 else 64
+    scale = d ** -0.5
+    raw = softcap is None
+    mult = scale * np.log2(np.e) if raw else np.log2(np.e)
+    q, k, v = q.float(), k.float(), v.float()
+    k = k.repeat_interleave(hq // hkv, dim=1)
+    v = v.repeat_interleave(hq // hkv, dim=1)
+    offset = tk - tq
+    out = torch.zeros(b, hq, tq, d)
+
+    def key_range(lo_row, hi_row):      # keys rows lo_row..hi_row - 1 can see
+        begin = max(0, lo_row + offset - window + 1) if window is not None else 0
+        end = min(tk, hi_row - 1 + offset + 1) if causal else tk
+        return begin, end
+
+    for r0 in range(0, tq, 64):
+        r1 = min(r0 + 64, tq)
+        blk0 = r0 // block_rows * block_rows
+        lo, hi = (r0, r1) if own_tiles else (blk0, min(blk0 + block_rows, tq))
+        begin, end = key_range(lo, hi)
+        pos = torch.arange(r0, r1) + offset
+        m = torch.full((b, hq, r1 - r0), -torch.inf)
+        l = torch.zeros(b, hq, r1 - r0)
+        acc = torch.zeros(b, hq, r1 - r0, d)
+        for k0 in range(begin // bk * bk, end if end > begin else 0, bk):
+            kj = torch.arange(k0, min(k0 + bk, tk))
+            s_ = q[:, :, r0:r1] @ k[:, :, kj].transpose(-1, -2)
+            x = s_ if raw else s_ * scale
+            if softcap is not None:
+                x = softcap * torch.tanh(x / softcap)
+            seen = torch.ones(r1 - r0, len(kj), dtype=torch.bool)
+            if causal:
+                seen &= kj[None] <= pos[:, None]
+            if window is not None:
+                seen &= pos[:, None] - kj[None] < window
+            x = x.masked_fill(~seen, -torch.inf)
+            m_new = torch.maximum(m, x.amax(-1))
+            live = m_new > -torch.inf
+            corr = torch.where(live, torch.exp2((m - m_new) * mult), torch.ones(()))
+            mneg = torch.where(live, -m_new * mult, torch.zeros(()))
+            p = torch.exp2(x * mult + mneg[..., None])
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None]
+            hi_p = _bf16(p)
+            acc = acc + hi_p @ v[:, :, kj] + _bf16(p - hi_p) @ v[:, :, kj]
+            m = m_new
+        out[:, :, r0:r1] = torch.where(l[..., None] > 0, acc / l.clamp_min(1e-30)[..., None],
+                                       torch.zeros(()))
+    return out
+
+
+@pytest.mark.parametrize("b,hq,hkv,t,d,causal,window,softcap", [
+    (1, 2, 1, 256, 64, True, None, None),          # MQA, DMAX 64: 64-key tiles
+    (2, 4, 2, 256, 128, True, 100, None),          # GQA, window, DMAX 128: 128-key tiles
+    (1, 2, 2, 256, 72, False, None, 30.0),         # D padded to DMAX 128, softcap
+    (1, 2, 1, 128, 256, True, None, None),         # DMAX 256: 64-key tiles
+])
+def test_flash_hopper_decomposition_matches_reference(b, hq, hkv, t, d, causal, window,
+                                                      softcap):
+    from repro.kernels.flash_attention import flash_attention as jflash
+
+    arrays = [_bf16(torch.from_numpy(a)).numpy()
+              for a in _inputs(14, (b, hq, t, d), (b, hkv, t, d), (b, hkv, t, d))]
+    (jq, jk, jv), (q, k, v) = _both(arrays, "bfloat16")
+    kw = dict(causal=causal, window=window)
+    got = _flash_hopper_decomposition(q, k, v, softcap=softcap, block_rows=64, own_tiles=True,
+                                      **kw)
+    # a 64-row group of a 128-row block, visiting the whole block's tiles
+    assert torch.equal(got, _flash_hopper_decomposition(q, k, v, softcap=softcap,
+                                                         block_rows=128, own_tiles=False, **kw))
+    want32 = ops.attention(q.float(), k.float(), v.float(), logit_softcap=softcap, **kw)
+    _close(got, want32, 1e-4)
+    got16 = got.to(torch.bfloat16)
+    _close(got16, jref.attention_ref(jq, jk, jv, logit_softcap=softcap, **kw), 2e-2)
+    _close(got16, jflash(jq, jk, jv, logit_softcap=softcap, block_q=128, block_k=128,
+                         interpret=True, **kw), 2e-2)
+
+
 # ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
