@@ -22,9 +22,12 @@ or any phase fails. Phases:
    90 % of each feature's rows in bin 0): histograms within tolerance, split
    decisions tie-aware, integer-valued sums bit-equal, two launches
    bit-identical; kernel, plain and library times beside the bound; and
-   each kernel's registers and spill bytes (phase 1); and the forest's
+   each kernel's registers and spill bytes (phase 1); the forest's
    deepest level (R = 600,000, B = 256, N = 512 in subtraction mode, 5 of 28
    features unmasked, Poisson integer g/h), bit-equal to the plain path;
+   NaN and infinite g/h giving the plain path's NaN and infinities; the
+   same rows shuffled giving the same bits; and the kernel launches of one
+   level, counted by the profiler;
 3. the search path: ``Session(SearchSpec(...)).results(train, valid)`` over
    a GBDT grid on 1,000,000 HIGGS-like rows, with launch counts showing that
    every tree level went through the level kernel;
@@ -105,8 +108,9 @@ or any phase fails. Phases:
    greedy tokens as the one-device engine); and ``compat.sharded_call``
    over two gloo ranks sharing cuda:0, a depth-6 GBDT tree on 800,000 x 28
    rows: its split decisions bit-equal to the stacked lowering's, its leaf
-   sums within HIST_TOL (the histogram kernel associates a cell's rows by
-   row chunks, which differ between one block and two side by side), the
+   sums within HIST_TOL (each rank's histogram rounds its own rows to its
+   own grid, the stacked lowering's all rows to one: sums of other
+   roundings), the
    histogram kernel and the split scan launched in each rank;
 17. the LM search on mesh slices and the GPipe pipeline: ``run_lm`` through
    the search launcher at its defaults (6 smoke-config tasks, 2 logical
@@ -300,7 +304,13 @@ def _decisions_tie_aware(torch, ref, hist_plain, hist_kernel, got, kw, exact=Fal
     tol_k = GAIN_RTOL * best_k[fin_k].abs().clamp_min(1.0)
     _check(bool(((best_k - g_kern.gather(1, pick)[:, 0])[fin_k].abs() <= tol_k).all()),
            "the scan's decision is not its histogram's best split")
-    _check(bool(((bg - best_k)[fin_k].abs() <= tol_k).all()), "best gain disagrees")
+    off = (bg - best_k)[fin_k].abs()
+    if not bool((off <= tol_k).all()):
+        i = int((off - tol_k).argmax())
+        node = int(torch.nonzero(fin_k)[i])
+        raise AssertionError(f"best gain disagrees at node {node}: kernel {float(bg[node])!r} "
+                             f"(feat {int(bf[node])}, split {int(bs[node])}), its histogram's "
+                             f"best {float(best_k[node])!r}, tolerance {float(tol_k[i]):.3g}")
     _check(bool(((bf[~fin_k] == 0) & (bs[~fin_k] == 0)).all()),
            "an all-masked node must give (-inf, 0, 0)")
     best_p, arg_p = g_plain.max(dim=1)
@@ -451,6 +461,101 @@ def _forest_cell(torch, gen, out: dict) -> None:
                                library_ms=lib_ms, bound_ms=bound, bound_by=by)
 
 
+def _nonfinite_cell(torch, gen) -> None:
+    """Phase 2's non-finite cell: integer g/h at R = 800,000, F = 28, B =
+    64, N = 8, with NaN, +inf and -inf planted in g and h (one cell meets
+    both infinities). The kernel gives the plain path's histogram, NaN for
+    NaN and the same infinities, the finite cells bit-equal, direct and by
+    subtraction; the decisions are the plain scan's on it."""
+    from repro_torch.kernels import ops, ref
+
+    nn, nb = 8, 64
+    bins, g, h, node = _level_inputs(torch, gen, R_KERNEL, F_KERNEL, nb, nn, integer=True)
+    bins[:8], node[:8] = 3, 0
+    g[0], g[1], g[2], h[3] = float("inf"), float("-inf"), float("nan"), float("inf")
+    g[4], bins[4] = float("inf"), 5
+    h[5], h[6], bins[5:7] = float("-inf"), float("inf"), 6
+    kw = dict(n_nodes=nn, n_bins=nb, lam=1.0, min_child_weight=1.0)
+    plain = ops._histogram_scatter(bins, g, h, node, nn, nb)
+    parent = ops._histogram_scatter(bins, g, h, node // 2, nn // 2, nb)
+    _check(bool(torch.isnan(plain).any() and torch.isinf(plain).any()), "non-finite cell")
+    for mode, ph in (("direct", None), ("subtraction", parent)):
+        got = ops.level_split(bins, g, h, node, parent_hist=ph, **kw)
+        want = plain if ph is None else ops.level_split(
+            bins, g, h, node, parent_hist=ph, force="plain", **kw)[0]
+        _check(torch.equal(torch.isnan(got[0]), torch.isnan(want))
+               and torch.equal(torch.nan_to_num(got[0]), torch.nan_to_num(want)),
+               f"non-finite g/h {mode}: histogram is not the plain path's")
+        scan = ref.split_scan_ref(got[0], lam=1.0, min_child_weight=1.0, n_bins=nb)
+        _check(torch.equal(got[2], scan[1]) and torch.equal(got[3], scan[2]),
+               f"non-finite g/h {mode}: decisions are not the plain scan's")
+    print(f"  non-finite g/h R={R_KERNEL:,} N={nn} B={nb}: NaN and infinities as the plain "
+          f"path's ({int(torch.isnan(plain).sum())} NaN, {int(torch.isinf(plain).sum())} "
+          f"infinite cells), finite cells bit-equal, direct and by subtraction", flush=True)
+
+
+def _permutation_cell(torch, gen) -> None:
+    """Phase 2's row-permutation cell: real g/h at R = 800,000, F = 28, B =
+    256, N = 8; the same rows shuffled give bit-equal histograms and equal
+    decisions, direct and by subtraction, and so does the histogram alone."""
+    from repro_torch.kernels import ops
+
+    nn, nb = 8, 256
+    t = _level_inputs(torch, gen, R_KERNEL, F_KERNEL, nb, nn)
+    perm = torch.randperm(R_KERNEL, generator=gen, device="cuda")
+    s = [x[perm].contiguous() for x in t]
+    kw = dict(n_nodes=nn, n_bins=nb, lam=1.0, min_child_weight=1.0)
+    parent = ops._histogram_scatter(t[0], t[1], t[2], t[3] // 2, nn // 2, nb)
+    for mode, ph in (("direct", None), ("subtraction", parent)):
+        a = ops.level_split(*t, parent_hist=ph, **kw)
+        b = ops.level_split(*s, parent_hist=ph, **kw)
+        _check(all(torch.equal(x, y) for x, y in zip(a, b)),
+               f"row permutation {mode}: the level differs")
+    _check(torch.equal(ops.histogram(*t, n_nodes=nn, n_bins=nb),
+                       ops.histogram(*s, n_nodes=nn, n_bins=nb)),
+           "row permutation: the histogram differs")
+    print(f"  rows permuted R={R_KERNEL:,} N={nn} B={nb}: histograms bit-equal and decisions "
+          f"equal, direct and by subtraction", flush=True)
+
+
+def _level_launch_counts(torch, gen, out: dict) -> None:
+    """The kernel launches of one level, counted on the device by the
+    profiler: two where one tile holds the level (the root, the leaf sums),
+    three where rows are grouped by node."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.histogram import level_launches
+
+    counts = {}
+    for label, r, f, nb, nn, sub in (("root", R_KERNEL, F_KERNEL, 64, 1, False),
+                                     ("N=8", R_KERNEL, F_KERNEL, 64, 8, False),
+                                     ("forest by subtraction", FOREST_R, F_KERNEL, 256,
+                                      FOREST_NODES, True),
+                                     ("leaf sums", R_KERNEL, 1, 1, 64, False)):
+        bins, g, h, node = _level_inputs(torch, gen, r, f, nb, nn)
+        ph = ops._histogram_scatter(bins, g, h, node // 2, nn // 2, nb) if sub else None
+        if label == "leaf sums":
+            def call():
+                return ops.histogram(bins, g, h, node, n_nodes=nn, n_bins=nb)
+        else:
+            def call():
+                return ops.level_split(bins, g, h, node, n_nodes=nn, n_bins=nb, lam=1.0,
+                                       min_child_weight=1.0, parent_hist=ph)
+        call()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type.name == "CUDA"
+                 and ("level_" in e.name or "split_scan" in e.name)]
+        planned = level_launches(r, f, nb, nn, subtract=sub)
+        _check(not names or len(names) == planned,
+               f"{label}: {len(names)} kernel launches, planned {planned}")
+        counts[label] = len(names) if names else None
+    out["level_launches"] = counts
+    print("  kernel launches a level (profiler): " + "; ".join(
+        f"{k} {'not measured' if v is None else v}" for k, v in counts.items()), flush=True)
+
+
 def _sharded_stats(torch, gen, r, integer):
     """Phase 2's sharded cells' statistics: a logistic round's g/h at a
     seeded random margin (or integer-valued ones), and a random node of
@@ -585,6 +690,12 @@ def phase_kernels(torch, out: dict) -> None:
     for nb, nn, skew in cells:
         rows.append(_level_cell(torch, gen, r, f, nb, nn, skew))
     _forest_cell(torch, gen, out)
+    # the cells added with the fixed-point kernel draw from their own
+    # generator, so the cells after them keep their inputs
+    gen_fp = torch.Generator(device="cuda").manual_seed(1)
+    _nonfinite_cell(torch, gen_fp)
+    _permutation_cell(torch, gen_fp)
+    _level_launch_counts(torch, gen_fp, out)
     _sharded_cells(torch, gen, out)
     # integer-valued grad/hess: every sum is exact, so bit-equal in any order
     for nb, nn, skew in ((64, 1, False), (256, 32, False), (256, 8, True)):
@@ -732,7 +843,7 @@ def phase_full_size(torch, out: dict) -> None:
     # kernels' share of the wall time, from a profiled two-round fit
     from torch.profiler import ProfilerActivity, profile
 
-    names = ("hist_accumulate", "hist_reduce", "split_scan")
+    names = ("level_stats", "level_group", "level_accumulate", "split_scan")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         est.train(prepared, {**params, "round": 2})
@@ -2453,9 +2564,8 @@ torch.cuda.synchronize()
 secs = __import__("time").perf_counter() - t0
 counts = launch_counts()
 stacked = compat.sharded_call(per_shard, n_shards=S)(bins, g, h, valid)
-# the decisions (feature, split bin) bit-equal; the leaf sums float sums
-# that the histogram kernel associates by its row chunks, which differ
-# between one block and S blocks side by side
+# the decisions (feature, split bin) bit-equal; the leaf sums each rank's
+# fixed-point sums on its own grid, against one grid of every row stacked
 same = all(torch.equal(a, b) for a, b in zip(spmd[:2], stacked[:2]))
 leaf = max(float(((a - b).abs() / (b.abs() + 1e-3)).max()) for a, b in zip(spmd[2:], stacked[2:]))
 print("RANK " + json.dumps(dict(rank=dist.get_rank(), same=same, leaf_rel=leaf, secs=secs,

@@ -33,9 +33,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "repro_error_string": ([_I], ctypes.c_char_p),
     "repro_smem_optin": ([_I], _I),
-    "repro_accumulate_warps": ([_I] * 4 + [ctypes.POINTER(_I)], _I),
-    "repro_histogram": ([_P] * 6 + [_I] * 7 + [_P], _I),
-    "repro_level_split": ([_P] * 7 + [_F, _F, _I] + [_P] * 5 + [_I] * 8 + [_P], _I),
+    "repro_level_scratch": ([_I] * 5, ctypes.c_longlong),
+    "repro_level_launches": ([_I] * 5, _I),
+    "repro_histogram": ([_P] * 6 + [_I] * 4 + [_P], _I),
+    "repro_level_split": ([_P] * 7 + [_F, _F, _I] + [_P] * 5 + [_I] * 5 + [_P], _I),
     "repro_split_scan": ([_P] * 2 + [_F, _F, _I] + [_P] * 3 + [_I] * 3 + [_P], _I),
     "repro_flash_max_head_dim": ([], _I),
     "repro_flash_attention": ([_P] * 4 + [_I] * 7 + [_F, _F, _I, _I, _P], _I),

@@ -379,7 +379,8 @@ def _plan_smaller_child(node, n_nodes, n_rows):
 
     Rows that are not compacted write to slot ``cap`` of a ``cap + 1``
     buffer that is then sliced off (JAX drops that out-of-bounds write).
-    The counts are integer sums, exact in any order."""
+    The counts are integer sums, exact in any order. The plain path's plan:
+    on the card the level kernel picks the same children itself."""
     dev = node.device
     nl = node.long()
     cnt = torch.zeros(n_nodes, dtype=torch.int32, device=dev).index_add_(
@@ -526,8 +527,16 @@ def level_split(
             min_child_weight=min_child_weight, bin_limit=bin_limit,
             feat_mask=feat_mask)
         return (hist if return_hist else None), bg, bf, bs
-    use_kernel = _use_kernel(force, bins)
     subtract = parent_hist is not None and n_nodes > 1
+    if _use_kernel(force, bins):
+        # the kernel picks the smaller children and gathers their rows itself
+        from repro_torch.kernels.histogram import fused_level_split_cuda
+
+        return fused_level_split_cuda(
+            bins, g, h, node, n_nodes=n_nodes, n_bins=n_bins,
+            lam=lam, min_child_weight=min_child_weight, bin_limit=bin_limit,
+            feat_mask=feat_mask, parent_hist=parent_hist if subtract else None,
+            return_hist=return_hist)
     if subtract:
         sil, idx, valid = _plan_smaller_child(node, n_nodes, bins.shape[0])
         n_half = n_nodes // 2
@@ -535,28 +544,12 @@ def level_split(
         sbins, sg, sh = bins[il], g[il], h[il]
         snode = torch.where(valid, node[il] // 2,
                             torch.full_like(idx, n_half))   # n_half = dump slot
-        if use_kernel:
-            from repro_torch.kernels.histogram import fused_level_split_cuda
-
-            return fused_level_split_cuda(
-                sbins, sg, sh, snode, n_nodes=n_nodes, n_bins=n_bins,
-                lam=lam, min_child_weight=min_child_weight,
-                bin_limit=bin_limit, feat_mask=feat_mask,
-                parent_hist=parent_hist, small_is_left=sil,
-                return_hist=return_hist)
         small = _histogram_scatter(sbins, sg, sh, snode, n_half, n_bins)
         big = parent_hist - small
         silb = sil[:, None, None, None]
         hist = torch.stack(
             [torch.where(silb, small, big), torch.where(silb, big, small)], dim=1,
         ).reshape(n_nodes, bins.shape[1], n_bins, 2)
-    elif use_kernel:
-        from repro_torch.kernels.histogram import fused_level_split_cuda
-
-        return fused_level_split_cuda(
-            bins, g, h, node, n_nodes=n_nodes, n_bins=n_bins,
-            lam=lam, min_child_weight=min_child_weight, bin_limit=bin_limit,
-            feat_mask=feat_mask, return_hist=return_hist)
     else:
         hist = _histogram_scatter(bins, g, h, node, n_nodes, n_bins)
     bg, bf, bs = _ref.split_scan_ref(

@@ -179,6 +179,147 @@ def test_cuda_wrappers_count_launches_and_check_inputs(cuda):
 
 
 # ---------------------------------------------------------------------------
+# The fixed-point level kernel (csrc/histogram.cu): g/h rounded to one
+# power-of-two grid a call, int64 sums, rows grouped by node. Integer sums
+# commute, so any row order gives the same bits; non-finite values give the
+# plain float sums' NaN and infinities.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,f,nb,nn", [(30000, 28, 64, 1), (20000, 7, 256, 8),
+                                       (40000, 28, 32, 64)])
+def test_cuda_level_split_row_permutation_invariant(cuda, r, f, nb, nn):
+    """The same rows in another order: bit-equal histograms and equal
+    decisions, direct and by subtraction, on real-valued g/h."""
+    t = _fixture(70, r, f, nb, nn, cuda)
+    perm = torch.from_numpy(np.random.default_rng(71).permutation(r)).to(cuda)
+    s = [x[perm].contiguous() for x in t]
+    kw = dict(n_nodes=nn, n_bins=nb, lam=1.0, min_child_weight=1.0)
+    parents = [None] + ([_parent(t, nn, nb)] if nn > 1 else [])
+    for ph in parents:
+        a = ops.level_split(*t, parent_hist=ph, **kw)
+        b = ops.level_split(*s, parent_hist=ph, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(ops.histogram(*t, n_nodes=nn, n_bins=nb),
+                       ops.histogram(*s, n_nodes=nn, n_bins=nb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nn", [1, 8, 64])
+def test_cuda_level_split_nonfinite_stats(cuda, nn):
+    """NaN, +inf and -inf in g and h (one cell meets both infinities) on
+    integer g/h: the kernel's histogram is the plain path's, NaN for NaN and
+    the same infinities, the rest bit-equal; the decisions are the plain
+    scan's on it."""
+    r, f, nb = 6000, 5, 16
+    t = _fixture(72, r, f, nb, nn, cuda, integer=True)
+    bins, g, h, node = t
+    bins[:8] = 3
+    node[:8] = 0
+    g[0], g[1], g[2] = float("inf"), float("-inf"), float("nan")
+    h[3] = float("inf")
+    g[4] = float("inf")
+    bins[4] = 5
+    h[5], h[6] = float("-inf"), float("inf")
+    bins[5:7] = 6
+    kw = dict(n_nodes=nn, n_bins=nb, lam=1.0, min_child_weight=1.0)
+    plain = ops.level_split(*[x.cpu() for x in t], **kw)
+    assert bool(torch.isnan(plain[0]).any() and torch.isinf(plain[0]).any())
+    for got in (ops.level_split(*t, **kw), [ops.histogram(*t, n_nodes=nn, n_bins=nb)]):
+        torch.testing.assert_close(got[0].cpu(), plain[0], rtol=0, atol=0, equal_nan=True)
+    got = ops.level_split(*t, **kw)
+    want = ref.split_scan_ref(got[0].cpu(), lam=1.0, min_child_weight=1.0, n_bins=nb)
+    assert torch.equal(got[2].cpu(), want[1]) and torch.equal(got[3].cpu(), want[2])
+    if nn > 1:
+        sub = ops.level_split(*t, parent_hist=_parent(t, nn, nb), **kw)
+        want = ops.level_split(*[x.cpu() for x in t],
+                               parent_hist=_parent([x.cpu() for x in t], nn, nb), **kw)
+        torch.testing.assert_close(sub[0].cpu(), want[0], rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_cuda_histogram_grid_edges(cuda):
+    """Tiny g keeps its relative precision (against float64 sums); past
+    2**24 rows the row count sets the grid (R * max|g| near 2**62: 2**25
+    rows of |g| < 2**35), and g on that grid sums exactly, rounded once."""
+    t = _fixture(73, 50000, 4, 16, 4, cuda)
+    tiny = t[1] * 1e-30
+    got = ops.histogram(t[0], tiny, t[2], t[3], n_nodes=4, n_bins=16)
+    flat = ((t[3].long()[:, None] * 4 + torch.arange(4, device=cuda)) * 16
+            + t[0].long()).reshape(-1)
+    want = torch.zeros(4 * 4 * 16, dtype=torch.float64, device=cuda).index_add_(
+        0, flat, tiny.double()[:, None].expand(-1, 4).reshape(-1)).reshape(4, 4, 16)
+    torch.testing.assert_close(got[..., 0].double(), want, rtol=1e-6, atol=0)
+    r = 2 ** 25
+    gen = torch.Generator(device=cuda).manual_seed(74)
+    k = torch.randint(-(2 ** 15), 2 ** 15, (r,), generator=gen, device=cuda)
+    bins = torch.randint(0, 2, (r, 1), generator=gen, device=cuda, dtype=torch.int32)
+    node = torch.zeros(r, dtype=torch.int32, device=cuda)
+    got = ops.histogram(bins, (k * 2.0 ** 20).float(), torch.ones(r, device=cuda), node,
+                        n_nodes=1, n_bins=2)
+    exact = torch.zeros(2, dtype=torch.int64, device=cuda).index_add_(0, bins[:, 0].long(), k)
+    assert torch.equal(got[0, 0, :, 0], (exact.float() * 2.0 ** 20))
+    assert torch.equal(got[0, 0, :, 1], torch.bincount(bins[:, 0].long(), minlength=2).float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integer", [False, True])
+@pytest.mark.parametrize("r,f,nb,nn", [(120000, 28, 256, 512), (50000, 1, 32, 16),
+                                       (50000, 7, 64, 32), (40000, 28, 64, 4)])
+def test_cuda_deep_levels_and_unaligned_rows(cuda, r, f, nb, nn, integer):
+    """N = 512 at B = 256 and F = 1, 7, 28: direct and by subtraction
+    against the plain path (bit-equal on integer g/h, within tolerance and
+    tie-aware on real g/h), and the accumulated child forced either way
+    (``small_is_left``) gives the same histogram on integer g/h."""
+    from repro_torch.kernels.histogram import fused_level_split_cuda
+
+    t = _fixture(75, r, f, nb, nn, cuda, integer=integer)
+    kw = dict(n_nodes=nn, n_bins=nb, lam=1.0, min_child_weight=1.0)
+    plain = ops._histogram_scatter(*t, nn, nb)
+    parent = _parent(t, nn, nb)
+    for got in (ops.level_split(*t, **kw), ops.level_split(*t, parent_hist=parent, **kw)):
+        if integer:
+            assert torch.equal(got[0], plain)
+        else:
+            torch.testing.assert_close(got[0], plain, atol=1e-4, rtol=1e-5)
+            _assert_tie_aware(plain, got, dict(lam=1.0, min_child_weight=1.0, n_bins=nb))
+    if integer:
+        for left in (True, False):
+            sil = torch.full((nn // 2,), left, dtype=torch.bool, device=cuda)
+            forced = fused_level_split_cuda(*t, parent_hist=parent, small_is_left=sil, **kw)
+            assert torch.equal(forced[0], plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nn", [1, 64, 512])
+def test_cuda_leaf_sums(cuda, nn):
+    """The leaf sums (F = 1, B = 1) at N = 1, 64 and 512, with pad rows on
+    node N: within tolerance of the plain path on real g/h, bit-equal on
+    integer g/h, two launches bit-identical."""
+    for integer in (False, True):
+        t = _fixture(76 + nn, 100000, 1, 1, nn + 1, cuda, integer=integer)
+        got = ops.histogram(*t, n_nodes=nn, n_bins=1)
+        plain = ops._histogram_scatter(*t, nn, 1)
+        if integer:
+            assert torch.equal(got, plain)
+        else:
+            torch.testing.assert_close(got, plain, atol=1e-4, rtol=1e-5)
+        assert torch.equal(got, ops.histogram(*t, n_nodes=nn, n_bins=1))
+
+
+@pytest.mark.cuda
+def test_cuda_level_launch_counts(cuda):
+    """Two kernel launches where one tile holds the level (the root, the
+    leaf sums), three where rows are grouped by node."""
+    from repro_torch.kernels.histogram import level_launches
+
+    assert level_launches(800000, 28, 64, 1) == 2
+    assert level_launches(800000, 1, 1, 64) == 2
+    assert level_launches(800000, 28, 64, 8) == 3
+    assert level_launches(600000, 28, 256, 512, subtract=True) == 3
+
+
+# ---------------------------------------------------------------------------
 # LM kernels: flash attention, RG-LRU, RWKV-6
 #
 # Tolerances: float32 inputs within rtol 1e-4 (attention: atol 1e-5; the
