@@ -1614,9 +1614,30 @@ def _rglru_case(torch, gen, b, t, d, with_h0):
                 library_ms=None)
 
 
+def _rwkv6_chunked_work_ms(b, h, t, dk, dv, sub=16):
+    """The least time for the operations of ``rwkv6_chunked``'s form, as
+    (ms, a text with its two terms): its tensor-core products at the bf16
+    peak, counted as the kernel takes them in bf16 (the readout r~ S and the
+    update k~^T V in 3 terms of bf16 pieces each, scores . V in 2, the
+    levels 8, 4, 2 in 3 and level 1 in 1, each level 8 x 8 pairs), and its
+    elementwise work at the float32 peak (a step and channel: the decay
+    exp(-exp(w)) 3, the prefix and suffix products and r~, k~ 4, the three
+    levels' row and column products 9, the bonus 3; and the state's decay
+    once a sub-chunk), the two added."""
+    steps = b * h * t
+    tensor = steps * (2 * 2 * dk * dv * 3 + 2 * sub * dv * 2
+                      + (3 * 3 + 1) * 2 * 8 * 8 * dk / sub)
+    elementwise = steps * (19 * dk + dk * dv / sub)
+    t_tensor = tensor / PEAK_BF16_FLOP_PER_S * 1e3
+    t_elem = elementwise / PEAK_F32_FLOP_PER_S * 1e3
+    return t_tensor + t_elem, (f"{t_tensor + t_elem:.4f} ms: tensor-core products "
+                               f"{tensor / 1e9:.1f} GFLOP {t_tensor:.4f} ms + elementwise "
+                               f"{elementwise / 1e9:.2f} GFLOP {t_elem:.4f} ms")
+
+
 def _rwkv6_case(torch, gen, b, h, t, dk, dv, with_s0):
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rwkv6 import rwkv6_cuda
+    from repro_torch.kernels.rwkv6 import chunked_form, rwkv6_cuda
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
@@ -1640,16 +1661,23 @@ def _rwkv6_case(torch, gen, b, h, t, dk, dv, with_s0):
     steps = b * h * t
     n_bytes = (steps * ((2 * dk + dv) * 2 + dk * 4 + dv * 2) + h * dk * 4
                + b * h * dk * dv * 4 * (2 if with_s0 else 1))
-    # per step and head: the readout r.S (2 Dk Dv: a product and a sum per
-    # state element), the update d*S + k v^T (3 Dk Dv), the bonus as the
-    # scalar r.(u*k) (3 Dk) times v added to y (2 Dv), the decay
-    # exp(-exp(w)) (2 Dk)
-    n_flops = steps * (5 * dk * dv + 5 * dk + 2 * dv)
-    bound, by = _bound_ms(n_bytes, n_flops)
+    if chunked_form(t, dk, dv, r.element_size(), 0):
+        work_ms, work = _rwkv6_chunked_work_ms(b, h, t, dk, dv)
+        t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+        bound, by = max((t_bytes, "bytes"), (work_ms, "operations"))
+        terms = f"bytes {t_bytes:.4f} ms, the chunked form's work {work}"
+    else:
+        # step by step, per step and head: the readout r.S (2 Dk Dv: a
+        # product and a sum per state element), the update d*S + k v^T (3 Dk
+        # Dv), the bonus as the scalar r.(u*k) (3 Dk) times v added to y (2
+        # Dv), the decay exp(-exp(w)) (2 Dk), on the CUDA cores
+        n_flops = steps * (5 * dk * dv + 5 * dk + 2 * dv)
+        bound, by = _bound_ms(n_bytes, n_flops)
+        terms = "the step kernel's form"
     print(f"  rwkv6 {label}: y max|err| {err:.3g} ({tol}), "
           f"S_T max|err| {s_err:.3g} (rtol {STATE_TOL:g} of scale), bit-identical reruns, "
           f"{ms:.4f} ms (CUDA events), device {dev_ms:.4f} ms (CUDA graph replay), "
-          f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by})", flush=True)
+          f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by}; {terms})", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bound, bound_by=by,
                 library_ms=None)
 
@@ -1809,7 +1837,7 @@ def _profiled_serve(torch, engine, wave):
     # elementwise kernels named after direct_copy); "elementwise" the other
     # pointwise ops (norms, rope, activations, the causal conv)
     kinds = (("flash_attention", ("flash_fwd",)), ("rglru", ("rglru_",)),
-             ("rwkv6", ("rwkv6_fwd",)),
+             ("rwkv6", ("rwkv6_",)),
              ("matmul", ("gemm", "xmma", "cutlass", "cublas", "nvjet")),
              ("copy", ("copy",)), ("elementwise", ("elementwise", "reduce")))
     by_kind: dict = {}

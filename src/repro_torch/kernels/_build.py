@@ -40,10 +40,11 @@ _SIGNATURES = {
     "repro_split_scan": ([_P] * 2 + [_F, _F, _I] + [_P] * 3 + [_I] * 3 + [_P], _I),
     "repro_flash_max_head_dim": ([], _I),
     "repro_flash_attention": ([_P] * 4 + [_I] * 7 + [_F, _F, _I, _I, _P], _I),
-    "repro_rglru_scratch": ([_I] * 3, ctypes.c_longlong),
-    "repro_rglru": ([_P] * 8 + [_I] * 4 + [_F, _P], _I),
+    "repro_rglru": ([_P] * 7 + [_I] * 4 + [_F, _P], _I),
     "repro_rwkv6_smem": ([_I, _I], ctypes.c_longlong),
     "repro_rwkv6": ([_P] * 8 + [_I] * 6 + [_P], _I),
+    "repro_rwkv6_chunked_smem": ([_I, _I], ctypes.c_longlong),
+    "repro_rwkv6_chunked": ([_P] * 8 + [_I] * 6 + [_P], _I),
 }
 #: one function per source: (i, &name, &registers, &local bytes) -> 0 | -1 | error
 _KERNEL_INFO = ("repro_histogram_kernel_info", "repro_flash_kernel_info",

@@ -298,10 +298,14 @@ def rglru(x, input_gate, rec_gate, a_param, h0=None, *, c=8.0, force=None):
 
 def rwkv6(r, k, v, w, u, s0=None, *, force=None):
     """RWKV-6 WKV recurrence. See ``rwkv6_ref``; returns ``(y, S_T)``. The
-    float32 casts of ``w``, ``u`` and ``s0`` are the ones the oracle makes
-    (the JAX package's ``chunk`` argument has no counterpart: the kernel
-    runs the recurrence in time order). On a mesh the heads are split over
-    ``model``."""
+    float32 casts of ``w``, ``u`` and ``s0`` are the ones the oracle makes.
+    On the card the wrapper picks the kernel by T (``rwkv6.chunked_form``):
+    from T = 16 on the chunked kernel runs sub-chunks of 16 steps on the
+    tensor cores, so a state carried across calls gives the bits of one
+    call only where a split lies on that grid; decode (T = 1), any shorter T
+    and shapes it does not take (Dk > 64, unaligned rows) run the step
+    kernel. The JAX package's ``chunk`` argument has no counterpart: the
+    sub-chunk is fixed. On a mesh the heads are split over ``model``."""
     if _is_dtensor(r):
         return _on_mesh(
             lambda *a: rwkv6(*a, force=force), (r, k, v, w, u, s0),

@@ -1,9 +1,12 @@
 """The RG-LRU recurrence as a hand-written CUDA kernel for Hopper.
 
 The port of the JAX package's ``kernels/rglru.py`` (``rglru_tpu``). The
-kernel is ``csrc/rglru.cu`` (its header says what bounds it and how the
-chained scan over chunks of T spreads the recurrence over the card); this
-module holds its ctypes wrapper, which also allocates the scan's scratch.
+kernels are in ``csrc/rglru.cu``, whose header says what bounds them: from
+T = 65 on ``rglru_chain``, one launch, a block walking one (batch, 32
+channels) chain through T in chunks of 64 steps, its gate warps forming the
+chunks ahead once each while a scan warp runs the chunk before, with the
+arithmetic of the chunked three-pass form it replaced; at T ≤ 64 (decode)
+``rglru_fwd``. This module holds their ctypes wrapper.
 Oracle: :func:`repro_torch.kernels.ref.rglru_ref`. Dispatch: ``ops.rglru``.
 """
 from __future__ import annotations
@@ -39,17 +42,11 @@ def rglru_cuda(x, input_gate, rec_gate, a_param, h0=None, *, c: float = 8.0):
     lib = _build.load()
     y = torch.empty_like(x)
     h_last = torch.empty((b, d), dtype=torch.float32, device=x.device)
-    # per-chunk decay products, local end states and entry states
-    # (none at T ≤ 64, where one chunk runs)
-    n_scratch = lib.repro_rglru_scratch(b, t, d)
-    scratch = (torch.empty(n_scratch, dtype=torch.float32, device=x.device)
-               if n_scratch > 0 else None)
     with torch.cuda.device(x.device):
         err = lib.repro_rglru(
             x.data_ptr(), input_gate.data_ptr(), rec_gate.data_ptr(),
             a_param.data_ptr(), None if h0 is None else h0.data_ptr(),
-            y.data_ptr(), h_last.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            _launch.dtype_code("x", x), b, t, d, float(c),
+            y.data_ptr(), h_last.data_ptr(), _launch.dtype_code("x", x), b, t, d, float(c),
             torch.cuda.current_stream(x.device).cuda_stream)
     _launch.raise_on(err, "RG-LRU kernel launch")
     _launch.count(rglru_cuda)

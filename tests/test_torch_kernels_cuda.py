@@ -480,22 +480,30 @@ def test_cuda_rwkv6_vs_plain(cuda, b, h, t, dk, dv, with_s0, dtype):
 
 @pytest.mark.cuda
 def test_cuda_rwkv6_state_chaining(cuda):
+    """A split on the chunked kernel's 16-step grid (at 32): the two calls
+    run the same sub-chunks from the same states, so they give the bits of
+    one call."""
     r, k, v, w = _lm(12, *[(1, 2, 64, 32)] * 4, device=cuda)
     (u,) = _lm(13, (2, 32), device=cuda)
     y, s = ops.rwkv6(r, k, v, w, u, force="kernel")
-    y1, s1 = ops.rwkv6(*(x[:, :, :24] for x in (r, k, v, w)), u, force="kernel")
-    y2, s2 = ops.rwkv6(*(x[:, :, 24:] for x in (r, k, v, w)), u, s1, force="kernel")
+    y1, s1 = ops.rwkv6(*(x[:, :, :32] for x in (r, k, v, w)), u, force="kernel")
+    y2, s2 = ops.rwkv6(*(x[:, :, 32:] for x in (r, k, v, w)), u, s1, force="kernel")
     assert torch.equal(torch.cat([y1, y2], 2), y) and torch.equal(s2, s)
 
 
 # The edges of the recurrences' designs (csrc/rglru.cu, csrc/rwkv6.cu): RG-LRU
-# scans T in chunks of 64 steps (each chunk's decay product and local end
-# state, a hand-off of entry states from chunk to chunk, a re-run of each
-# chunk from its entry state); RWKV-6 stages 16 steps at a time, gives a
-# thread 8 rows x 4 columns of the state and splits Dv into column groups
-# (64 columns at Dk=64, 32 at Dk=128). Tolerances as above: the chunked
-# scan forms each chunk's entry state as prod(a) * h + local, another
-# float32 order than the step-by-step oracle.
+# from T = 65 on scans T in chunks of 64 steps in one launch, a block a
+# (batch, 32 channels) chain (each chunk's decay product and local end state,
+# the next chunk's entry state from them, a re-run of the chunk from its
+# entry state), at T <= 64 step by step; RWKV-6 from T = 16 on runs sub-chunks of 16
+# steps on the tensor cores (rwkv6_chunked: Dk <= 64, a block 64 columns of
+# the state, so Dv past 64 in column groups), below that and at Dk > 64 or
+# rows that are not 16-byte aligned it runs step by step (rwkv6_fwd: a
+# thread 8 rows x 4 columns of the state, staged 16 steps at a time, Dv in
+# column groups of 64 at Dk=64, 32 at Dk=128). Tolerances as above: the
+# chunked scans form each chunk's entry state as prod(a) * h + local, and
+# RWKV-6's sub-chunks take float32 operands into the tensor cores as bf16
+# pieces, other float32 orders than the step-by-step oracle.
 RGLRU_CHUNK, RWKV6_STAGE = 64, 16
 
 
@@ -519,7 +527,9 @@ def _rglru_held(x, ig, rg, a, h0, dt):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d", [160, 33])
 def test_cuda_rglru_chunk_edges(cuda, t, dtype, d):
-    """d=160: two channel tiles, the second ragged; d=33: one ragged tile."""
+    """d=160: two 128-channel tiles of rglru_fwd (T <= 64), the second
+    ragged, and five 32-channel chains of rglru_chain; d=33: one ragged
+    tile, and two chains, the second of one channel."""
     dt = getattr(torch, dtype)
     b = 2
     x, ig, rg = _lm(20, (b, t, d), (b, t, d), (b, t, d), device=cuda, dtype=dt)
@@ -596,17 +606,23 @@ def test_cuda_rwkv6_staging_edges(cuda, t, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("decay", ["-8", "+4", "mixed"])
+@pytest.mark.parametrize("decay", ["-8", "+4", "mixed", "fast_slow"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_rwkv6_extreme_decays(cuda, decay, dtype):
     """w = -8 (decay exp(-3.4e-4): the state barely fades over the run), w =
-    +4 (decay exp(-54.6) ~ 2e-24: gone in a step), and the two per channel."""
+    +4 (decay exp(-54.6) ~ 2e-24: gone in a step), the two per channel, and
+    fast and slow steps along T within a channel (w = 15, where the decay
+    underflows to 0, at every third step and 5 steps in 16, else -8): the
+    case the TPU kernel clamps its log decay for, where a quotient of
+    cumulative decay products would divide by 0."""
     dt = getattr(torch, dtype)
     b, h, t, dk, dv = 2, 2, 3 * RWKV6_STAGE + 5, 64, 64
     r, k, v = _lm(28, (b, h, t, dk), (b, h, t, dk), (b, h, t, dv), device=cuda, dtype=dt)
     u, s0 = _lm(29, (h, dk), (b, h, dk, dv), device=cuda)
     if decay == "mixed":
         w = torch.where(torch.arange(dk, device=cuda) % 2 == 0, -8.0, 4.0).expand(b, h, t, dk)
+    elif decay == "fast_slow":
+        w = torch.from_numpy(_rwkv6_fast_slow_w(b, h, t, dk)).to(cuda)
     else:
         w = torch.full((b, h, t, dk), float(decay), device=cuda)
     _rwkv6_held(r, k, v, w.contiguous(), u, s0, dt)
@@ -632,16 +648,111 @@ def test_cuda_rwkv6_column_groups(cuda, dk, dv, dtype):
 
 @pytest.mark.cuda
 def test_cuda_rwkv6_state_across_a_split_off_the_staging(cuda):
-    """No step depends on where a staged chunk starts, so a state carried
-    across a split at 37 (not a multiple of 16) gives the bits of one call."""
+    """A state carried across a split at 37, off the chunked kernel's
+    16-step grid: the second call's sub-chunks start elsewhere than one
+    call's, so its sums run in another order (as the TPU kernel's chunks
+    would); both calls are held to the plain version of the whole sequence
+    at this file's tolerances, and a split at 32 gives the bits of one call."""
     b, h, t, dk, dv = 1, 4, 80, 64, 64
     r, k, v = _lm(32, (b, h, t, dk), (b, h, t, dk), (b, h, t, dv), device=cuda,
                   dtype=torch.bfloat16)
     w, u = _lm(33, (b, h, t, dk), (h, dk), device=cuda)
     y, s = _rwkv6_held(r, k, v, w, u, None, torch.bfloat16)
+    y_r, s_r = ref.rwkv6_ref(r, k, v, w, u)
     y1, s1 = ops.rwkv6(*(x[:, :, :37] for x in (r, k, v, w)), u, force="kernel")
     y2, s2 = ops.rwkv6(*(x[:, :, 37:] for x in (r, k, v, w)), u, s1, force="kernel")
+    _bf16_close(torch.cat([y1, y2], 2), y_r)
+    torch.testing.assert_close(s2, s_r, atol=1e-4, rtol=1e-4)
+    y1, s1 = ops.rwkv6(*(x[:, :, :32] for x in (r, k, v, w)), u, force="kernel")
+    y2, s2 = ops.rwkv6(*(x[:, :, 32:] for x in (r, k, v, w)), u, s1, force="kernel")
     assert torch.equal(torch.cat([y1, y2], 2), y) and torch.equal(s2, s)
+
+
+def _rwkv6_fast_slow_w(b, h, t, dk):
+    """w along T within each channel: 15 (decay exp(-exp(15)) = 0 in
+    float32) at the steps where (step + channel) % 3 == 0, else -8."""
+    steps = np.arange(t)[:, None] + np.arange(dk)[None, :]
+    w = np.where(steps % 3 == 0, 15.0, -8.0).astype(np.float32)
+    return np.ascontiguousarray(np.broadcast_to(w, (b, h, t, dk)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [RWKV6_STAGE - 1, RWKV6_STAGE, RWKV6_STAGE + 1,
+                               2 * RWKV6_STAGE + 1, 300])
+@pytest.mark.parametrize("dk,dv", [(64, 64), (16, 48), (32, 160)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rwkv6_sub_chunk_edges(cuda, t, dk, dv, dtype):
+    """T around one and two sub-chunks and a ragged 300 (18 sub-chunks and
+    12 steps), with and without s0: 15 steps run the step kernel, the rest
+    the chunked one; Dk 16 and 32 (one and two 16-channel tiles) and Dv 48
+    and 160 (a group Dv does not fill; three groups, the last ragged)."""
+    from repro_torch.kernels.rwkv6 import chunked_form
+
+    dt = getattr(torch, dtype)
+    b, h = 2, 3
+    r, k, v = _lm(34, (b, h, t, dk), (b, h, t, dk), (b, h, t, dv), device=cuda, dtype=dt)
+    w, u, s0 = _lm(35, (b, h, t, dk), (h, dk), (b, h, dk, dv), device=cuda)
+    assert chunked_form(t, dk, dv, r.element_size(), 0) == (t >= RWKV6_STAGE)
+    for init in (None, s0):
+        _rwkv6_held(r, k, v, w, u, init, dt)
+
+
+@pytest.mark.cuda
+def test_cuda_rglru_more_chunks_than_the_card_holds(cuda):
+    """B=8, T=8192, D=4096: 1,024 chains of 128 chunks in one launch, more
+    blocks than the card holds at once (four an SM): a block walks its
+    chain alone and waits on no other block, so the later ones start as
+    the first finish."""
+    b, t, d = 8, 8192, 4096
+    gen = torch.Generator(device=cuda).manual_seed(36)
+    x, ig, rg = (torch.randn((b, t, d), generator=gen, device=cuda).bfloat16()
+                 for _ in range(3))
+    a = torch.randn(d, generator=gen, device=cuda)
+    h0 = torch.randn((b, d), generator=gen, device=cuda)
+    y, h = ops.rglru(x, ig, rg, a, h0, force="kernel")
+    y_r, h_r = ref.rglru_ref(x, ig, rg, a, h0)
+    _bf16_close(y, y_r)
+    torch.testing.assert_close(h, h_r, atol=1e-4, rtol=1e-4)
+    y2, h2 = ops.rglru(x, ig, rg, a, h0, force="kernel")
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,t", [("rglru", 300), ("rglru", 1), ("rwkv6", 100),
+                                      ("rwkv6", 1)])
+def test_cuda_recurrences_replayed_in_a_cuda_graph(cuda, kernel, t):
+    """Each recurrence captured in a CUDA graph and replayed twice: both
+    replays bit-equal to each other and to an eager call."""
+    if kernel == "rglru":
+        from repro_torch.kernels.rglru import rglru_cuda as fn
+
+        x, ig, rg = _lm(37, (2, t, 160), (2, t, 160), (2, t, 160), device=cuda,
+                        dtype=torch.bfloat16)
+        a, h0 = _lm(38, (160,), (2, 160), device=cuda)
+        args = (x, ig, rg, a, h0)
+    else:
+        from repro_torch.kernels.rwkv6 import rwkv6_cuda as fn
+
+        r, k, v = _lm(39, *[(2, 3, t, 64)] * 3, device=cuda, dtype=torch.bfloat16)
+        w, u, s0 = _lm(40, (2, 3, t, 64), (3, 64), (2, 3, 64, 64), device=cuda)
+        args = (r, k, v, w, u, s0)
+    eager = fn(*args)
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(tuple(o.clone() for o in out))
+    for got in replays:
+        assert all(torch.equal(p, q) for p, q in zip(got, eager))
 
 
 @pytest.mark.cuda

@@ -309,6 +309,122 @@ def test_rwkv6_column_groups_match_reference(b, h, t, dk, dv, cols, decay):
     _close(s, sr, 2e-5)
 
 
+# The sub-chunk form of csrc/rwkv6.cu's rwkv6_chunked, written out in plain
+# PyTorch: sub-chunks of 16 steps (the last padded with r = k = v = 0 and
+# decay 1) carried through the state; every decay factor a product of
+# per-step decays d = exp(-exp(w)), one factor at a time (exclusive prefix
+# products for the readout rows, exclusive suffix products for the update's
+# keys); the strictly lower triangle of scores split by levels h = 8, 4, 2,
+# 1, a level's pairs (t in the upper, s in the lower half of one aligned
+# block of 2h steps) one product of rows r_t * prod_{p<=u<t} d_u by columns
+# k_s * prod_{s<u<p} d_u, p the upper half's first step; the bonus on the
+# diagonal; and every product taken as the kernel takes it on the tensor
+# cores, its float32 operands as bf16 pieces (each the operand less the
+# pieces before it, rounded) and the terms of pieces a, b with a + b below
+# the larger count, exact products summed in float32. PIECES: the pieces of
+# (r~, S, k~, v, scores, levels 8-2, level 1) in the kernel's bf16 and
+# float32 modes. Held, on the same seeded inputs, to the JAX oracle within
+# 1e-4 of scale and to the JAX package's Pallas kernel at this file's 5e-3.
+RWKV6_SUB = 16
+PIECES = {"bfloat16": (2, 2, 3, 1, 2, 2, 1), "float32": (3, 3, 3, 3, 3, 3, 3)}
+
+
+def _pieces(x, n):
+    out = []
+    for _ in range(n):
+        out.append(_bf16(x))
+        x = x - out[-1]
+    return out
+
+
+def _pieces_product(eq, a, b, na, nb):
+    pa, pb, most = _pieces(a, na), _pieces(b, nb), max(na, nb)
+    return sum(torch.einsum(eq, pa[i], pb[j]) for i in range(na) for j in range(nb)
+               if i + j < most)
+
+
+def _rwkv6_sub_chunks(r, k, v, w, u, s0, pieces):
+    n_r, n_s, n_k, n_v, n_sc, n_lv, n_l1 = pieces
+    b, h, t, dk = r.shape
+    sub = RWKV6_SUB
+    decay = torch.exp(-torch.exp(w))
+    s = s0.clone()
+    ys = []
+    steps = torch.arange(sub)
+    for t0 in range(0, t, sub):
+        n = min(sub, t - t0)
+
+        def chunk(x, fill):
+            pad = torch.full(x.shape[:2] + (sub - n, x.shape[-1]), fill)
+            return torch.cat([x[:, :, t0:t0 + n], pad], 2)
+
+        rc, kc, vc, dc = chunk(r, 0.0), chunk(k, 0.0), chunk(v, 0.0), chunk(decay, 1.0)
+        prefix, suffix = [torch.ones(b, h, dk)], [torch.ones(b, h, dk)]
+        for i in range(sub):
+            prefix.append(prefix[-1] * dc[:, :, i])
+            suffix.insert(0, suffix[0] * dc[:, :, sub - 1 - i])
+        r_dec = rc * torch.stack(prefix[:sub], 2)
+        k_dec = kc * torch.stack(suffix[1:], 2)
+        scores = torch.zeros(b, h, sub, sub)
+        for hh in (8, 4, 2, 1):
+            e, f = [None] * sub, [None] * sub
+            for i in range(sub):            # prod_{p<=u<t} d_u, from p up
+                e[i] = torch.ones(b, h, dk) if i % hh == 0 else e[i - 1] * dc[:, :, i - 1]
+            for i in reversed(range(sub)):  # prod_{s<u<p} d_u, from p - 1 down
+                f[i] = torch.ones(b, h, dk) if (i + 1) % hh == 0 else f[i + 1] * dc[:, :, i + 1]
+            npc = n_l1 if hh == 1 else n_lv
+            level = _pieces_product("bhti,bhsi->bhts", rc * torch.stack(e, 2),
+                                    kc * torch.stack(f, 2), npc, npc)
+            pairs = ((steps[:, None] // (2 * hh) == steps[None, :] // (2 * hh))
+                     & (steps[:, None] & hh != 0) & (steps[None, :] & hh == 0))
+            scores = torch.where(pairs, level, scores)
+        bonus = torch.einsum("bhti,hi,bhti->bht", rc, u, kc)
+        scores = scores + torch.diag_embed(bonus)
+        y = (_pieces_product("bhsj,bhts->bhtj", vc, scores, n_v, n_sc)
+             + _pieces_product("bhij,bhti->bhtj", s, r_dec, n_s, n_r))
+        s = (prefix[sub][..., None] * s
+             + _pieces_product("bhsj,bhsi->bhij", vc, k_dec, n_v, n_k))
+        ys.append(y[:, :, :n])
+    return torch.cat(ys, 2), s
+
+
+def _rwkv6_decay_w_fast_slow(w):
+    """w along T within each channel: 15 (decay exp(-exp(15)) = 0 in
+    float32) at the steps where (step + channel) % 3 == 0, else -8 (the
+    state barely fades): where the TPU kernel clamps its log decay, and a
+    quotient of cumulative decay products would divide by 0."""
+    steps = np.arange(w.shape[2])[:, None] + np.arange(w.shape[3])[None, :]
+    return np.broadcast_to(np.where(steps % 3 == 0, 15.0, -8.0), w.shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("b,h,t,dk,dv,chunk,with_s0", [
+    (1, 2, 40, 16, 24, 8, True),          # off the sub-chunk grid: 2 sub-chunks and 8 steps
+    (2, 1, 32, 32, 16, 16, False),        # on the grid
+    (1, 1, 16, 8, 8, 16, True),           # one sub-chunk, Dk padded to a tile in the kernel
+])
+@pytest.mark.parametrize("decay", ["random", "-8", "+4", "mixed", "fast_slow"])
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+def test_rwkv6_sub_chunks_match_reference(b, h, t, dk, dv, chunk, with_s0, decay, mode):
+    arrays = _inputs(15, (b, h, t, dk), (b, h, t, dk), (b, h, t, dv), (b, h, t, dk), (h, dk),
+                     (b, h, dk, dv))
+    if mode == "bfloat16":              # the kernel's bf16 inputs: r, k, v exact in bf16
+        arrays[:3] = [_bf16(torch.from_numpy(a)).numpy() for a in arrays[:3]]
+    arrays[3] = (_rwkv6_decay_w_fast_slow(arrays[3]) if decay == "fast_slow"
+                 else _rwkv6_decay_w(arrays[3], decay))
+    if not with_s0:
+        arrays[5] = np.zeros_like(arrays[5])
+    (jr, jk, jv, jw, ju, js0), (r, k, v, w, u, s0) = _both(arrays)
+    y, s = _rwkv6_sub_chunks(r, k, v, w, u, s0, PIECES[mode])
+    assert bool(torch.isfinite(y).all() and torch.isfinite(s).all())
+    yr, sr = jref.rwkv6_ref(jr, jk, jv, jw, ju, js0)
+    for got, want in ((y, yr), (s, sr)):
+        scale = float(np.abs(_np(want)).max())
+        np.testing.assert_allclose(_np(got), _np(want), atol=1e-4 * scale, rtol=1e-4)
+    yk, sk = jops.rwkv6(jr, jk, jv, jw, ju, js0, chunk=chunk, force="kernel")
+    _close(y, yk, 5e-3)
+    _close(s, sk, 5e-3)
+
+
 # The decomposition of csrc/flash_attention.cu's flash_fwd_hopper, written
 # out in plain PyTorch: 64-row query groups (one warpgroup each, in blocks
 # of `block_rows`), K/V tiles of 128 keys at DMAX 128 and 64 otherwise, the
