@@ -33,6 +33,7 @@ from typing import Hashable, Sequence
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core.data_format import DenseMatrix, is_sharded_payload, prepare_cached
 from repro_torch.core.fusion import CompileCache
 from repro_torch.core.results import METRICS, sharded_metric
@@ -124,36 +125,40 @@ def evaluate_models(
         return [None] * len(models), 0.0
     cache = cache if cache is not None else _PREDICT_CACHE
     t0 = time.perf_counter()
-    try:
-        entry, _conv_s, _built = prepare_cached(
-            plan.data, getattr(est, "eval_format", "eval_dense"),
-            cache=prepared_cache, placement=placement)
-        x = entry["x"]
-        sharded = is_sharded_payload(entry)
-        if sharded:
-            # prediction is row-local: score the flattened (S·Rs, F) block
-            # view, then reduce per-shard metric PARTIALS (§3.9) — no
-            # gathered prediction vector for decomposable metrics
-            n_shards, rows_per_shard = int(entry["_n_shards"]), x.shape[1]
-            x = x.reshape(n_shards * rows_per_shard, *x.shape[2:])
-        if len(models) > 1:
-            probs = type(models[0]).predict_proba_batched(models, x, cache=cache)
-        else:
-            probs = [models[0].predict_proba_device(x, cache=cache)]
-        y = plan.data.y
-        if sharded:
-            n_rows = int(entry["_n_rows"])
-            valid = entry["_shard_valid"].cpu().numpy()
-            y_blocks = np.zeros(valid.shape, np.asarray(y).dtype)
-            y_blocks.reshape(-1)[:n_rows] = np.asarray(y).reshape(-1)
-            scores: list[float | None] = [
-                sharded_metric(plan.metric, y_blocks,
-                               np.asarray(p).reshape(valid.shape), valid, n_rows)
-                for p in probs]
-        else:
-            metric_fn = METRICS[plan.metric]
-            scores = [float(metric_fn(y, np.asarray(p))) for p in probs]
-    except Exception:
-        return [None] * len(models), 0.0
-    total = time.perf_counter() - t0
+    with tracing.span("score", models=len(models)):
+        try:
+            entry, _conv_s, _built = prepare_cached(
+                plan.data, getattr(est, "eval_format", "eval_dense"),
+                cache=prepared_cache, placement=placement)
+            x = entry["x"]
+            sharded = is_sharded_payload(entry)
+            if sharded:
+                # prediction is row-local: score the flattened (S·Rs, F) block
+                # view, then reduce per-shard metric PARTIALS (§3.9) — no
+                # gathered prediction vector for decomposable metrics
+                n_shards, rows_per_shard = int(entry["_n_shards"]), x.shape[1]
+                x = x.reshape(n_shards * rows_per_shard, *x.shape[2:])
+            # the predictors return host arrays: this span ends with the copy
+            with tracing.span("score.predict"):
+                if len(models) > 1:
+                    probs = type(models[0]).predict_proba_batched(models, x, cache=cache)
+                else:
+                    probs = [models[0].predict_proba_device(x, cache=cache)]
+            y = plan.data.y
+            with tracing.span("score.metric", metric=plan.metric):
+                if sharded:
+                    n_rows = int(entry["_n_rows"])
+                    valid = entry["_shard_valid"].cpu().numpy()
+                    y_blocks = np.zeros(valid.shape, np.asarray(y).dtype)
+                    y_blocks.reshape(-1)[:n_rows] = np.asarray(y).reshape(-1)
+                    scores: list[float | None] = [
+                        sharded_metric(plan.metric, y_blocks,
+                                       np.asarray(p).reshape(valid.shape), valid, n_rows)
+                        for p in probs]
+                else:
+                    metric_fn = METRICS[plan.metric]
+                    scores = [float(metric_fn(y, np.asarray(p))) for p in probs]
+        except Exception:
+            return [None] * len(models), 0.0
+        total = time.perf_counter() - t0
     return scores, total / len(models)

@@ -42,6 +42,7 @@ from typing import Callable, Iterator, Sequence
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.data_format import (
     DenseMatrix,
     PreparedDataCache,
@@ -96,9 +97,10 @@ def _run_fused_unit(unit: FusedBatch, data, eid: int,
     members = list(unit.tasks)
     est = get_estimator(unit.estimator)
     try:
-        models, total, conv = run_prepared_batched(
-            est, data, [m.params for m in members],
-            cache=cache, placement=placement)
+        with tracing.span("fit.train", task=unit.task_id):
+            models, total, conv = run_prepared_batched(
+                est, data, [m.params for m in members],
+                cache=cache, placement=placement)
         per = total / len(members)
         carrier = charge_carrier(members) if conv > 0 else -1
         scores: list = [None] * len(members)
@@ -159,13 +161,14 @@ def _train_solo(task, data, cache: PreparedDataCache | None = None,
     through here so rung semantics cannot diverge. Returns
     ``(estimator, model, train_seconds, convert_seconds, resume_state)``."""
     est = get_estimator(task.estimator)
-    if isinstance(task, RungTask):
-        model, secs, conv, rstate = run_prepared_resumable(
-            est, data, task.params, budget=task.budget, state=task.state,
-            cache=cache, placement=placement)
-        return est, model, secs, conv, rstate
-    model, secs, conv = run_prepared(est, data, task.params,
-                                     cache=cache, placement=placement)
+    with tracing.span("fit.train", task=task.task_id):
+        if isinstance(task, RungTask):
+            model, secs, conv, rstate = run_prepared_resumable(
+                est, data, task.params, budget=task.budget, state=task.state,
+                cache=cache, placement=placement)
+            return est, model, secs, conv, rstate
+        model, secs, conv = run_prepared(est, data, task.params,
+                                         cache=cache, placement=placement)
     return est, model, secs, conv, None
 
 
@@ -322,49 +325,50 @@ class LocalExecutorPool:
                 if not pend:
                     return
                 in_flight[unit.task_id] = (eid, time.perf_counter())
-            sub = unit.restrict(pend)
-            try:
-                hook_err: Exception | None = None
-                if self.failure_hook is not None:
-                    try:
-                        self.failure_hook(eid, unit)  # may raise ExecutorFailure
-                    except ExecutorFailure:
-                        raise
-                    except Exception as e:
-                        # injected batch-level failure: every pending member
-                        # fails this attempt; the retry filter below re-queues
-                        # them SOLO, so the culprit isolates on re-run (§3.7)
-                        hook_err = e
-                if hook_err is not None:
-                    batch_results = [
-                        TaskResult(task=m, model=None, train_seconds=0.0,
-                                   executor_id=eid, error=repr(hook_err),
-                                   batch_size=len(sub.tasks))
-                        for m in sub.tasks]
-                else:
-                    batch_results = _run_fused_unit(sub, data, eid,
-                                                    cache=self.prepared_cache,
-                                                    placement=self._placement_token,
-                                                    validate=validate)
-            except ExecutorFailure:
+            with tracing.span("fit", task=unit.task_id, executor=eid):
+                sub = unit.restrict(pend)
+                try:
+                    hook_err: Exception | None = None
+                    if self.failure_hook is not None:
+                        try:
+                            self.failure_hook(eid, unit)  # may raise ExecutorFailure
+                        except ExecutorFailure:
+                            raise
+                        except Exception as e:
+                            # injected batch-level failure: every pending member
+                            # fails this attempt; the retry filter below re-queues
+                            # them SOLO, so the culprit isolates on re-run (§3.7)
+                            hook_err = e
+                    if hook_err is not None:
+                        batch_results = [
+                            TaskResult(task=m, model=None, train_seconds=0.0,
+                                       executor_id=eid, error=repr(hook_err),
+                                       batch_size=len(sub.tasks))
+                            for m in sub.tasks]
+                    else:
+                        batch_results = _run_fused_unit(sub, data, eid,
+                                                        cache=self.prepared_cache,
+                                                        placement=self._placement_token,
+                                                        validate=validate)
+                except ExecutorFailure:
+                    with results_lock:
+                        in_flight.pop(unit.task_id, None)
+                    raise
                 with results_lock:
                     in_flight.pop(unit.task_id, None)
-                raise
-            with results_lock:
-                in_flight.pop(unit.task_id, None)
-            # solo-shaped members (pre-amortization cost restored) for
-            # retries: a failed member re-queues ALONE so its next attempt
-            # cannot take good batch-mates down with it (§3.7)
-            solo = {sub.tasks[i].task_id: sub.unfused_task(i)
-                    for i in range(len(sub.tasks))}
-            for res in batch_results:
-                if not res.ok and self._retry.should_retry(res.task.task_id):
-                    self._retry.wait(res.task.task_id)
-                    requeue.put(solo.get(res.task.task_id, res.task))
-                    continue
-                if accept(res, eid):
-                    self._emit(res)
-                    out.put(res)
+                # solo-shaped members (pre-amortization cost restored) for
+                # retries: a failed member re-queues ALONE so its next attempt
+                # cannot take good batch-mates down with it (§3.7)
+                solo = {sub.tasks[i].task_id: sub.unfused_task(i)
+                        for i in range(len(sub.tasks))}
+                for res in batch_results:
+                    if not res.ok and self._retry.should_retry(res.task.task_id):
+                        self._retry.wait(res.task.task_id)
+                        requeue.put(solo.get(res.task.task_id, res.task))
+                        continue
+                    if accept(res, eid):
+                        self._emit(res)
+                        out.put(res)
 
         def quarantine(eid: int, task: TrainTask, n: int | None = None) -> None:
             """Surface a poison task as a terminal quarantine error (§3.7)."""
@@ -391,39 +395,41 @@ class LocalExecutorPool:
                 if task.task_id in results:
                     return
                 in_flight[task.task_id] = (eid, time.perf_counter())
-            try:
-                if self.failure_hook is not None:
-                    self.failure_hook(eid, task)  # may raise ExecutorFailure
-                est, model, secs, conv, rstate = _train_solo(
-                    task, data, cache=self.prepared_cache,
-                    placement=self._placement_token)
-                score, eval_s = _score_solo(est, model, validate,
-                                            self.prepared_cache,
-                                            placement=self._placement_token)
-                res = TaskResult(task=task, model=model, train_seconds=secs,
-                                 executor_id=eid, convert_seconds=conv,
-                                 score=score, eval_seconds=eval_s,
-                                 resume_state=rstate)
-            except ExecutorFailure:
+            with tracing.span("fit", task=task.task_id, executor=eid):
+                try:
+                    if self.failure_hook is not None:
+                        self.failure_hook(eid, task)  # may raise ExecutorFailure
+                    est, model, secs, conv, rstate = _train_solo(
+                        task, data, cache=self.prepared_cache,
+                        placement=self._placement_token)
+                    score, eval_s = _score_solo(est, model, validate,
+                                                self.prepared_cache,
+                                                placement=self._placement_token)
+                    res = TaskResult(task=task, model=model, train_seconds=secs,
+                                     executor_id=eid, convert_seconds=conv,
+                                     score=score, eval_seconds=eval_s,
+                                     resume_state=rstate)
+                except ExecutorFailure:
+                    with results_lock:
+                        in_flight.pop(task.task_id, None)
+                    raise
+                except Exception as e:  # task-level failure: record, don't kill pool
+                    with results_lock:
+                        in_flight.pop(task.task_id, None)
+                    if self._retry.should_retry(task.task_id):
+                        # bounded retry (§3.7): capped exponential backoff, then
+                        # back on the re-queue for any live worker to claim
+                        self._retry.wait(task.task_id)
+                        requeue.put(task)
+                        return
+                    res = TaskResult(task=task, model=None, train_seconds=0.0,
+                                     executor_id=eid, error=repr(e))
                 with results_lock:
                     in_flight.pop(task.task_id, None)
-                raise
-            except Exception as e:  # task-level failure: record, don't kill pool
-                with results_lock:
-                    in_flight.pop(task.task_id, None)
-                if self._retry.should_retry(task.task_id):
-                    # bounded retry (§3.7): capped exponential backoff, then
-                    # back on the re-queue for any live worker to claim
-                    self._retry.wait(task.task_id)
-                    requeue.put(task)
-                    return
-                res = TaskResult(task=task, model=None, train_seconds=0.0, executor_id=eid, error=repr(e))
-            with results_lock:
-                in_flight.pop(task.task_id, None)
-            # failures stay out of the WAL (accept) so resume retries them
-            if accept(res, eid):
-                self._emit(res)
-                out.put(res)
+                # failures stay out of the WAL (accept) so resume retries them
+                if accept(res, eid):
+                    self._emit(res)
+                    out.put(res)
 
         def maybe_speculate(eid: int) -> TrainTask | None:
             """Idle executor: duplicate the longest-overdue in-flight task.
@@ -565,58 +571,55 @@ class LocalExecutorPool:
                 return True
             return False
 
+        def claim(eid: int, idle: list) -> TrainTask | None:
+            """The next unit for ``eid`` once its static queue is done: from
+            the re-queue and, on a dynamic plan, the shared queue or a
+            speculative copy. None when the worker should stop."""
+            while not stop.is_set():
+                try:
+                    return requeue.get_nowait()
+                except _queue.Empty:
+                    pass
+                if dynamic:
+                    try:
+                        return shared.get_nowait()
+                    except _queue.Empty:
+                        pass
+                    task = maybe_speculate(eid)
+                    if task is not None:
+                        return task
+                if not wait_for_requeue(idle):
+                    return None
+            return None
+
         def worker(eid: int, static_queue: list[TrainTask]) -> None:
             idle = [False]
             try:
-                if dynamic:
-                    while not stop.is_set():
-                        try:
-                            task = requeue.get_nowait()
-                        except _queue.Empty:
-                            try:
-                                task = shared.get_nowait()
-                            except _queue.Empty:
-                                task = maybe_speculate(eid)
-                                if task is None:
-                                    if wait_for_requeue(idle):
-                                        continue
-                                    return
-                        idle[0] = False
-                        try:
-                            execute(eid, task)
-                        except ExecutorFailure:
-                            # dying with a claimed task: taint it, hand it to
-                            # survivors (or quarantine past the threshold)
-                            requeue_after_death(eid, task)
-                            raise
-                else:
-                    for i, task in enumerate(static_queue):
-                        if stop.is_set():
-                            return
-                        try:
-                            execute(eid, task)
-                        except ExecutorFailure:
-                            # the claimed task is tainted; the rest of my
-                            # queue was never claimed, push it plain
-                            requeue_after_death(eid, task)
-                            for rest in static_queue[i + 1:]:
-                                if not self.wal.is_done(rest.task_id):
-                                    requeue.put(rest)
-                            raise
-                    # static plan finished: drain any re-queued work from dead peers
-                    while not stop.is_set():
-                        try:
-                            task = requeue.get_nowait()
-                        except _queue.Empty:
-                            if wait_for_requeue(idle):
-                                continue
-                            return
-                        idle[0] = False
-                        try:
-                            execute(eid, task)
-                        except ExecutorFailure:
-                            requeue_after_death(eid, task)
-                            raise
+                # a static plan's own queue first (a dynamic plan has none)
+                for i, task in enumerate(static_queue):
+                    if stop.is_set():
+                        return
+                    try:
+                        execute(eid, task)
+                    except ExecutorFailure:
+                        # the claimed task is tainted; the rest of my
+                        # queue was never claimed, push it plain
+                        requeue_after_death(eid, task)
+                        for rest in static_queue[i + 1:]:
+                            if not self.wal.is_done(rest.task_id):
+                                requeue.put(rest)
+                        raise
+                # then the shared work: a dynamic plan's queue, and what
+                # dead peers re-queued
+                while (task := claim(eid, idle)) is not None:
+                    idle[0] = False
+                    try:
+                        execute(eid, task)
+                    except ExecutorFailure:
+                        # dying with a claimed task: taint it, hand it to
+                        # survivors (or quarantine past the threshold)
+                        requeue_after_death(eid, task)
+                        raise
             except ExecutorFailure:
                 self._dead.add(eid)
 

@@ -51,6 +51,7 @@ import inspect
 import time
 from typing import Callable, Iterator, Mapping
 
+from repro_torch import tracing
 from repro_torch.core.backend import ExecutorBackend
 from repro_torch.core.cost_model import CostModel, observed_drift
 from repro_torch.core.data_format import DenseMatrix, prepared_data_cache
@@ -91,7 +92,6 @@ class SearchStats:
 
     def __init__(self):
         self.profiling_seconds = 0.0
-        self.execution_seconds = 0.0
         self.total_seconds = 0.0
         self.n_tasks = 0
         self.n_failures = 0
@@ -277,7 +277,8 @@ class Session:
             self.stats.n_model_estimates += len(known)
         unknown = [t for t in batch if t.task_id not in known]
         if unknown:
-            report = profiler.profile(unknown, train)
+            with tracing.span("search.profile", tasks=len(unknown)):
+                report = profiler.profile(unknown, train)
             self.stats.profiling_seconds += report.profiling_seconds
             self.stats.n_profiled += len(report.costs)
             known.update(report.costs)
@@ -558,7 +559,6 @@ class Session:
                 # When observed runtimes drift past spec.replan_threshold,
                 # cancel the stream, re-estimate the remaining tasks from
                 # feedback and re-run rebalance (scheduler.replan) mid-round.
-                t0 = time.perf_counter()
                 round_results: list[TaskResult] = []
                 scores: dict[int, float] = {}  # task_id -> validation score
 
@@ -690,7 +690,6 @@ class Session:
                                             policy=spec.policy)
                     replans_left -= 1
                     self.stats.n_replans += 1
-                self.stats.execution_seconds += time.perf_counter() - t0
                 if cm is not None and cm.path:
                     cm.save()          # per-round checkpoint of the model
                 if self.stop_reason:

@@ -27,6 +27,7 @@ from typing import Any, Callable, Mapping
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.data_format import is_sharded_payload
 from repro_torch.core.interface import (
     Estimator,
@@ -58,23 +59,25 @@ def _grow_forest(bins, y, draws: TreeDraws, min_samples_leaf, depth_limit, start
     dev = bins.device
     feats, splits, leaves = [], [], []
     for t in range(start, start + n_trees):
-        w, perm = draws(t, dev)
-        if axis_name is not None:
-            w = torch.nn.functional.pad(w, (0, bins.shape[0] * bins.shape[1] - w.shape[0]))
-            w = w.reshape(bins.shape[:-1])
-        feat_mask = torch.zeros(f, dtype=torch.bool, device=dev)
-        feat_mask[perm[:max_features]] = True
-        g = -y * w
-        h = w
-        feat, split, leaf_g, leaf_h = build_tree(
-            bins, g, h, n_bins=n_bins, max_depth=max_depth,
-            lam=1e-6, gamma=0.0, min_child_weight=min_samples_leaf,
-            feat_mask=feat_mask, depth_limit=depth_limit,
-            subtract=subtract, force=force,
-            axis_name=axis_name, row_valid=row_valid)
-        feats.append(feat)
-        splits.append(split)
-        leaves.append(-leaf_g / torch.clamp_min(leaf_h, 1e-6))   # = weighted mean(y)
+        with tracing.span("tree", index=t):
+            with tracing.span("tree.draws"):
+                w, perm = draws(t, dev)
+            if axis_name is not None:
+                w = torch.nn.functional.pad(w, (0, bins.shape[0] * bins.shape[1] - w.shape[0]))
+                w = w.reshape(bins.shape[:-1])
+            feat_mask = torch.zeros(f, dtype=torch.bool, device=dev)
+            feat_mask[perm[:max_features]] = True
+            g = -y * w
+            h = w
+            feat, split, leaf_g, leaf_h = build_tree(
+                bins, g, h, n_bins=n_bins, max_depth=max_depth,
+                lam=1e-6, gamma=0.0, min_child_weight=min_samples_leaf,
+                feat_mask=feat_mask, depth_limit=depth_limit,
+                subtract=subtract, force=force,
+                axis_name=axis_name, row_valid=row_valid)
+            feats.append(feat)
+            splits.append(split)
+            leaves.append(-leaf_g / torch.clamp_min(leaf_h, 1e-6))   # = weighted mean(y)
     if not feats:
         n_int = (1 << max_depth) - 1
         return (torch.zeros((0, n_int), dtype=torch.int32, device=dev),

@@ -23,7 +23,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from repro_torch import compat
+from repro_torch import compat, tracing
 from repro_torch.core.data_format import is_sharded_payload
 from repro_torch.core.evaluation import stable_sigmoid
 from repro_torch.core.interface import (
@@ -101,23 +101,24 @@ def build_tree(
     n_split = max_depth if depth_limit is None else min(max_depth, int(depth_limit))
     for level in range(n_split):
         n_nodes = 1 << level
-        keep_hist = subtract and level + 1 < n_split
-        parent, best_gain, feat, split = ops.level_split(
-            bins, g, h, node, n_nodes=n_nodes, n_bins=n_bins,
-            lam=lam, min_child_weight=min_child_weight,
-            bin_limit=bin_limit, feat_mask=feat_mask,
-            parent_hist=parent if subtract else None,
-            return_hist=keep_hist, force=force,
-            axis_name=axis_name, row_valid=row_valid)
-        is_leaf = best_gain <= gamma
-        feat = torch.where(is_leaf, torch.zeros_like(feat), feat)
-        # sentinel split: every row routes left
-        split = torch.where(is_leaf, torch.full_like(split, n_bins - 1), split)
-        feats.append(feat)
-        splits.append(split)
-        nl = node.long()
-        row_bin = torch.gather(bins, -1, feat[nl].long()[..., None])[..., 0]
-        node = 2 * node + (row_bin > split[nl]).to(torch.int32)
+        with tracing.span("level", thread_clock=True, level=level, nodes=n_nodes):
+            keep_hist = subtract and level + 1 < n_split
+            parent, best_gain, feat, split = ops.level_split(
+                bins, g, h, node, n_nodes=n_nodes, n_bins=n_bins,
+                lam=lam, min_child_weight=min_child_weight,
+                bin_limit=bin_limit, feat_mask=feat_mask,
+                parent_hist=parent if subtract else None,
+                return_hist=keep_hist, force=force,
+                axis_name=axis_name, row_valid=row_valid)
+            is_leaf = best_gain <= gamma
+            feat = torch.where(is_leaf, torch.zeros_like(feat), feat)
+            # sentinel split: every row routes left
+            split = torch.where(is_leaf, torch.full_like(split, n_bins - 1), split)
+            feats.append(feat)
+            splits.append(split)
+            nl = node.long()
+            row_bin = torch.gather(bins, -1, feat[nl].long()[..., None])[..., 0]
+            node = 2 * node + (row_bin > split[nl]).to(torch.int32)
     leaf = ops.histogram(torch.zeros(rows + (1,), dtype=torch.int32, device=dev),
                          g, h, node, n_nodes=1 << n_split, n_bins=1, force=force,
                          axis_name=axis_name, row_valid=row_valid)
@@ -234,22 +235,23 @@ def _resume_gbdt_core(
     margin = margin0
     feats, splits, leaves = [], [], []
     for r_idx in range(start, start + rounds):
-        p = torch.sigmoid(margin)
-        g = p - y
-        h = torch.clamp_min(p * (1.0 - p), 1e-16)
-        feat, split, leaf_g, leaf_h = build_tree(
-            cbins, g, h, n_bins=n_bins, max_depth=max_depth,
-            lam=lam, gamma=gamma, min_child_weight=min_child_weight,
-            depth_limit=depth_limit, bin_limit=bin_limit,
-            subtract=subtract, force=force,
-            axis_name=axis_name, row_valid=row_valid)
-        # an empty padded leaf is 0/(0+λ), NaN for λ=0: zero it by selection
-        leaf_value = (-eta * leaf_g / (leaf_h + lam) if r_idx < n_rounds
-                      else torch.zeros_like(leaf_g))
-        margin = margin + predict_margin(cbins, feat, split, leaf_value, max_depth)
-        feats.append(feat)
-        splits.append(split)
-        leaves.append(leaf_value)
+        with tracing.span("tree", index=r_idx):
+            p = torch.sigmoid(margin)
+            g = p - y
+            h = torch.clamp_min(p * (1.0 - p), 1e-16)
+            feat, split, leaf_g, leaf_h = build_tree(
+                cbins, g, h, n_bins=n_bins, max_depth=max_depth,
+                lam=lam, gamma=gamma, min_child_weight=min_child_weight,
+                depth_limit=depth_limit, bin_limit=bin_limit,
+                subtract=subtract, force=force,
+                axis_name=axis_name, row_valid=row_valid)
+            # an empty padded leaf is 0/(0+λ), NaN for λ=0: zero it by selection
+            leaf_value = (-eta * leaf_g / (leaf_h + lam) if r_idx < n_rounds
+                          else torch.zeros_like(leaf_g))
+            margin = margin + predict_margin(cbins, feat, split, leaf_value, max_depth)
+            feats.append(feat)
+            splits.append(split)
+            leaves.append(leaf_value)
     n_int, n_leaves = (1 << max_depth) - 1, 1 << max_depth
     if not feats:
         dev = bins.device
